@@ -1,7 +1,7 @@
 """Offline render: orbiting source, distance cues, WAV + scene SVG out.
 
-Runs on CPU by default for instant startup; set JEFFERSON_EXAMPLES_TPU=1 to
-run on the attached TPU (first compile takes minutes through remote stacks).
+Runs on CPU by default for instant startup; set JEFFERSON_EXAMPLES_ACCELERATOR=1 to
+run on the platform JAX boots (the GPU where one is attached).
 """
 
 import sys
@@ -11,7 +11,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))  # repo-root imp
 
 import os
 
-if not os.environ.get("JEFFERSON_EXAMPLES_TPU"):
+if not os.environ.get("JEFFERSON_EXAMPLES_ACCELERATOR"):
     import jax
 
     jax.config.update("jax_platforms", "cpu")

@@ -1,7 +1,7 @@
 """Live streaming: push 128-sample blocks, steer the source in real time.
 
 This is the PortAudio-callback analogue — wire ``process_block`` into any
-audio callback. Runs on CPU by default (JEFFERSON_EXAMPLES_TPU=1 for TPU).
+audio callback. Runs on CPU by default (JEFFERSON_EXAMPLES_ACCELERATOR=1 for the GPU).
 """
 
 import sys
@@ -11,7 +11,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))  # repo-root imp
 
 import os
 
-if not os.environ.get("JEFFERSON_EXAMPLES_TPU"):
+if not os.environ.get("JEFFERSON_EXAMPLES_ACCELERATOR"):
     import jax
 
     jax.config.update("jax_platforms", "cpu")

@@ -11,7 +11,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))  # repo-root imp
 
 import os
 
-if not os.environ.get("JEFFERSON_EXAMPLES_TPU"):
+if not os.environ.get("JEFFERSON_EXAMPLES_ACCELERATOR"):
     import jax
 
     jax.config.update("jax_platforms", "cpu")

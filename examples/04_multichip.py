@@ -1,9 +1,10 @@
-"""Multi-chip scaling: shard 16 concurrent sources over a device mesh.
+"""Multi-device scaling: shard 16 concurrent sources over a device mesh.
 
-Runs anywhere: if fewer than 8 devices are visible (e.g. one TPU chip), it
-self-provisions an 8-device virtual CPU mesh — no env setup needed.
+Runs anywhere: if fewer than 8 devices are visible (e.g. one GPU), it runs
+as a CPU dry run on a self-provisioned 8-device virtual CPU mesh — no env
+setup needed.
 
-The same mesh is reachable from the CLI (round 4): `jefferson --scene
+The same mesh is reachable from the CLI: `jefferson --scene
 scene.json --devices N` shards the source axis exactly like this example,
 and `jefferson -i in.wav --devices N` shards a single render's time-block
 axis instead ('sp'-style, GSPMD halo exchange).

@@ -10,13 +10,13 @@ processes x 2 virtual CPU devices via ``jax.distributed``, one full
 batched render step, the cross-process mixdown checked against an
 unsharded render (the same stage __graft_entry__'s dryrun runs at 2x4).
 
-On REAL multi-host TPU, the per-process worker is the template — run on
+On REAL multi-host GPUs, the per-process worker is the template — run on
 each host:
 
     python -m jefferson_tpu.parallel.multihost \
         --process-id $RANK --num-processes $K --coordinator host0:PORT
 
-(no --local-devices override: each host contributes its own chips).
+(no --local-devices override: each host contributes its own devices).
 """
 
 import sys

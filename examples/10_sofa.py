@@ -15,7 +15,7 @@ onto the same measurement, while the delay-aligned 3-nearest interpolation
 (`mapping="interp3"`, what `"auto"` picks for sparse sets) tracks the
 underlying smooth field.  It then renders an orbit through the loaded set.
 
-Runs on CPU by default; set JEFFERSON_EXAMPLES_TPU=1 for the attached TPU.
+Runs on CPU by default; set JEFFERSON_EXAMPLES_ACCELERATOR=1 for the attached GPU.
 """
 
 import sys
@@ -25,7 +25,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))  # repo-root imp
 
 import os
 
-if not os.environ.get("JEFFERSON_EXAMPLES_TPU"):
+if not os.environ.get("JEFFERSON_EXAMPLES_ACCELERATOR"):
     import jax
 
     jax.config.update("jax_platforms", "cpu")

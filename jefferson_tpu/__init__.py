@@ -1,12 +1,12 @@
-"""jefferson_tpu — TPU-native binaural spatialization framework.
+"""jefferson_tpu — binaural spatialization framework on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the CUDA
+A from-scratch JAX/XLA rebuild of the capabilities of the CUDA
 binaural spatializer Cindytb/Jefferson-2.0: block-streaming overlap-save FFT
 convolution with azimuth/elevation-interpolated KEMAR HRTF pairs,
 crossfading on source movement, frequency-domain distance cues, convolution
 reverb, WAV file I/O, trajectory-driven offline/streaming rendering, and a
 CPU-oracle parity test methodology.  See SURVEY.md for the structural map of
-the reference this framework re-implements TPU-first.
+the reference this framework re-implements.
 """
 
 from .config import DEFAULT_CONFIG, EngineConfig, ProcessType

@@ -3,7 +3,7 @@
 Reference semantics (reference: Jefferson/src/precision_test.cu:2093-2201):
 four scenarios (azi, ele) in {(0,0),(3,0),(0,5),(3,5)}; each renders
 ``blocks_per_step`` blocks at the start position, then ``num_steps`` rounds
-of azimuth += 5 (wrapping at 360), comparing the interpolating TPU engine
+of azimuth += 5 (wrapping at 360), comparing the interpolating engine
 against the CPU oracle at eps=2e-7, with crossfade state starting from
 old=(0,0) like the reference's reset.
 """
@@ -15,7 +15,7 @@ import numpy as np
 from ..config import DEFAULT_CONFIG, EngineConfig, ProcessType
 from ..engine.renderer import Renderer
 from ..hrtf.kemar import HRTFDatabase
-from ..oracle.reference import render_oracle
+from ..oracle.reference import render_oracle, render_oracle_many
 from ..testing import PrecisionReport, precision_check
 from ..trajectory.trajectory import AzimuthSweep
 
@@ -23,21 +23,20 @@ SCENARIOS = [(0.0, 0.0), (3.0, 0.0), (0.0, 5.0), (3.0, 5.0)]
 
 # headroom warning threshold: the reference gate is eps=2e-7; once the worst
 # scenario uses more than this fraction of it, a contraction-order change is
-# one step from failing the gate (round-1 margin 0.60, round-2 0.90 — see
-# PERF.md's margin ladder)
+# one step from failing the gate (PERF.md records the measured margins)
 MARGIN_WARN = 0.95
 
 
 def mover_positions(num_blocks: int, ele_period: int = 997) -> np.ndarray:
     """Per-block mover for the gate's 5th scenario: azimuth orbits ~1.3 deg
     per block (a crossfade EVERY block) while elevation sweeps the full
-    -40..90 grid, touching all four interpolation cases and far more than
-    MAX_ONEHOT_U unique filters per chunk.
+    -40..90 grid, touching all four interpolation cases and hundreds of
+    unique filters per chunk.
 
     The reference's four benchmarkTesting scenarios hold each position for
-    172 blocks, so they exercise only the dedup(+fused) dispatch; this
-    scenario pins the one-hot / gather-blend mover kernels under the same
-    full-scale oracle gate (round-2 advisor finding)."""
+    172 blocks, so they exercise only the dedup dispatch; this scenario
+    pins the direct (every-block crossfade) chunk program under the same
+    full-scale oracle gate."""
     i = np.arange(num_blocks)
     azi = (i * 1.3) % 360.0
     ele = 25.0 + 65.0 * np.sin(i * (2.0 * np.pi / ele_period))
@@ -68,8 +67,8 @@ def scene_hold_positions(
     """(S, B, 3) multi-source scene whose sources each HOLD positions for
     ``blocks_per_step`` blocks (the reference's benchmarkTesting cadence,
     precision_test.cu:2093-2148) at staggered start azimuths/elevations —
-    the production scene shape that forces the batch dedup+fused dispatch
-    (engine/batch.batched_chunk_fn_dedup_fused)."""
+    the production scene shape that forces the batch dedup dispatch
+    (engine/batch.batched_chunk_fn_dedup)."""
     i = np.arange(num_blocks)
     step = i // blocks_per_step
     eles = [0.0, 10.0, -20.0, 40.0]
@@ -83,10 +82,9 @@ def scene_hold_positions(
 
 def scene_mover_positions(num_sources: int, num_blocks: int) -> np.ndarray:
     """(S, B, 3) wide-mover scene: every source orbits EVERY BLOCK at its
-    own elevation band, so the cross-source unique-filter set exceeds one
-    compact table's VMEM gate (MAX_ONEHOT_U) while each source's own set
-    fits — the shape that forces the batched GROUPED one-hot dispatch
-    (per-source-group table slices inside one kernel call, PERF.md)."""
+    own elevation band, so the cross-source unique-filter set is wide and
+    dedup cannot pay — the shape that forces the direct batch dispatch
+    (engine/batch.batched_chunk_fn)."""
     i = np.arange(num_blocks)
     pos = np.empty((num_sources, num_blocks, 3), np.float64)
     for s in range(num_sources):
@@ -99,22 +97,10 @@ def scene_mover_positions(num_sources: int, num_blocks: int) -> np.ndarray:
 
 
 def _batch_dispatches(br) -> set[str]:
-    """Which batched kernels a BatchRenderer compiled, from its jit-cache
-    keys (see BatchRenderer._get_fn): 'dedup_fused', 'onehot_grouped',
-    'onehot_shared', 'gather_fused', 'xla'."""
-    names = set()
-    for (nb, dedup_key, fused_tb, onehot, group_tiles, _ud, _xf, _ncf) in br._jitted:
-        if fused_tb is not None and dedup_key is not None:
-            names.add("dedup_fused")
-        elif onehot and group_tiles is not None:
-            names.add("onehot_grouped")
-        elif onehot:
-            names.add("onehot_shared")
-        elif fused_tb is not None:
-            names.add("gather_fused")
-        else:
-            names.add("xla")
-    return names
+    """Which batched chunk programs a BatchRenderer compiled, from its
+    jit-cache keys (see BatchRenderer._get_fn): 'dedup' or 'direct'."""
+    return {"direct" if dedup_key is None else "dedup"
+            for (_nb, dedup_key, _xf) in br._jitted}
 
 
 def run_scene_gate(
@@ -126,48 +112,38 @@ def run_scene_gate(
     num_blocks: int = 12556,
     eps: float = 2e-7,
     chunk_blocks: int = 256,
-    require_dispatch: bool = True,
-    fused: bool | None = None,
+    dedup: bool = True,
+    oracle_workers: int = 1,
 ) -> PrecisionReport:
-    """Full-scale engine-vs-oracle gate for the BATCHED/scene kernels.
+    """Full-scale engine-vs-oracle gate for the BATCHED/scene programs.
 
     The reference gates its engine end-to-end on every launch
     (precision_test.cu:2154-2201); the four classic scenarios above cover
     the single-source Renderer but the daemon/--scene production paths run
-    `engine/batch.py`'s kernels (dedup+fused composition, batched grouped
-    one-hot) whose MXU tile geometries differ.  This gate renders a
-    multi-source scene through BatchRenderer and checks EVERY source's
-    stream against its own oracle render at the same eps — per-source
-    comparison, because a summed-mix comparison would dilute per-stream
-    error into the sum's amplitude (the mix is still checked for
-    finiteness by the callers).
+    `engine/batch.py`'s chunk programs.  This gate renders a multi-source
+    scene through BatchRenderer and checks EVERY source's stream against
+    its own oracle render at the same eps — per-source comparison, because
+    a summed-mix comparison would dilute per-stream error into the sum's
+    amplitude (the mix is still checked for finiteness by the callers).
 
-    scenario 'hold'   -> sources hold positions  -> batch dedup+fused
-    scenario 'movers' -> every-block wide movers -> batched grouped one-hot
-    ``require_dispatch`` asserts the intended kernel actually compiled and
-    never struck a fallback (otherwise the gate could silently pass
-    against the XLA path instead of the kernel it exists to pin).
-
-    chunk_blocks defaults to 256 so per-source group tiles sit at the
-    flagship 256-row geometry: with whole-source tiles (tb % nb == 0 is
-    the kernel contract) a larger chunk would force 512-row tiles, which
-    exceed VMEM (PERF.md kernel tile sweep), and the GROUPED_MIN_TB policy
-    (engine/batch.py) would otherwise route shrunken tiles to the gather
-    blend.
+    scenario 'hold'   -> sources hold positions  -> batch dedup program
+    scenario 'movers' -> every-block wide movers (a crossfade every block;
+                         the direct program once the scene is long enough
+                         that dedup cannot pay)
+    The hold gate asserts that the dedup program actually compiled, so it
+    cannot pass against a path it does not exist to pin.
     """
     from ..engine.batch import BatchRenderer
 
-    # whole chunks only: a partial final chunk compiles a second program
-    # (each remote compile costs 20 s - 5 min on the deployed stack) without
-    # adding gate coverage
+    # whole chunks only: a partial final chunk adds padding, not coverage
     if num_blocks > chunk_blocks:
         num_blocks = (num_blocks // chunk_blocks) * chunk_blocks
     if scenario == "hold":
         positions = scene_hold_positions(num_sources, num_blocks)
-        want_dispatch = "dedup_fused"
+        want_dispatch = "dedup"
     elif scenario == "movers":
         positions = scene_mover_positions(num_sources, num_blocks)
-        want_dispatch = "onehot_grouped"
+        want_dispatch = None
     else:
         raise ValueError(f"unknown scene scenario {scenario!r}")
     fpb = config.frames_per_buffer
@@ -178,33 +154,19 @@ def run_scene_gate(
     signals = np.stack(
         [np.roll(base, -(s * 7919 * fpb) % n) for s in range(num_sources)]
     )
-    br = BatchRenderer(db, config, chunk_blocks=chunk_blocks, mix=False, fused=fused)
+    br = BatchRenderer(db, config, chunk_blocks=chunk_blocks, mix=False, dedup=dedup)
     outs = br.render(signals, positions)  # (S, B*fpb, 2)
-    if require_dispatch:
-        got_d = _batch_dispatches(br)
-        if want_dispatch not in got_d:
-            raise AssertionError(
-                f"scene '{scenario}' gate did not exercise the "
-                f"{want_dispatch} dispatch (compiled: {sorted(got_d)}) — "
-                f"the gate would pin the wrong kernel"
-            )
-        if br._fused_strikes:
-            raise AssertionError(
-                f"scene '{scenario}' gate hit fused fallbacks "
-                f"{dict(br._fused_strikes)} — output came from the XLA path"
-            )
-    worst = None
-    for s in range(num_sources):
-        want = render_oracle(
-            signals[s], db, [tuple(p) for p in positions[s]], config,
-            initial_old=(0.0, 0.0),
+    got_d = _batch_dispatches(br)
+    if want_dispatch is not None and want_dispatch not in got_d:
+        raise AssertionError(
+            f"scene '{scenario}' gate did not exercise the "
+            f"{want_dispatch} dispatch (compiled: {sorted(got_d)}) — "
+            f"the gate would pin the wrong program"
         )
-        rep = precision_check(outs[s], want, eps=eps)
-        if worst is None or rep.max_abs_diff > worst.max_abs_diff:
-            worst = rep
-        if not rep.ok:
-            break  # a failure is already the gate's answer
-    return worst
+    wants = render_oracle_many(zip(signals, positions), db, config,
+                               workers=oracle_workers)
+    reports = [precision_check(o, w, eps=eps) for o, w in zip(outs, wants)]
+    return max(reports, key=lambda rep: rep.max_abs_diff)
 
 
 def run_benchmark_sweep(
@@ -217,22 +179,23 @@ def run_benchmark_sweep(
     r: float = 0.5,
     renderer: Renderer | None = None,
     scenarios=None,
+    oracle_workers: int = 1,
 ) -> list[PrecisionReport]:
-    """Run the 4-scenario sweep; returns one PrecisionReport per scenario."""
+    """Run the 4-scenario sweep; returns one PrecisionReport per scenario.
+    ``oracle_workers`` > 1 renders the oracles in that many CPU processes."""
     renderer = renderer or Renderer(db, config)
-    reports = []
+    gots, jobs = [], []
     for azi, ele in scenarios or SCENARIOS:
         traj = AzimuthSweep(
             start_azi=azi, ele=ele, r=r, step_deg=5.0,
             blocks_per_step=blocks_per_step, num_steps=num_steps,
         )
         pos = traj.sample(traj.total_blocks, config)
-        got = renderer.render(signal, pos, ProcessType.TPU_FD_COMPLEX, initial_old=(0.0, 0.0))
-        want = render_oracle(
-            signal, db, [tuple(p) for p in pos], config, initial_old=(0.0, 0.0)
-        )
-        reports.append(precision_check(got, want, eps=eps))
-    return reports
+        gots.append(renderer.render(signal, pos, ProcessType.TPU_FD_COMPLEX,
+                                    initial_old=(0.0, 0.0)))
+        jobs.append((signal, pos))
+    wants = render_oracle_many(jobs, db, config, workers=oracle_workers)
+    return [precision_check(g, w, eps=eps) for g, w in zip(gots, wants)]
 
 
 def main(argv=None) -> int:
@@ -253,13 +216,13 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=72)
     p.add_argument("--eps", type=float, default=2e-7)
     p.add_argument("--no-mover", action="store_true",
-                   help="skip the per-block mover scenario (one-hot/gather "
-                        "kernel gate; the 4 reference scenarios only "
-                        "exercise the dedup dispatch)")
+                   help="skip the per-block mover scenario (the 4 "
+                        "reference scenarios only exercise the dedup "
+                        "dispatch)")
     p.add_argument("--no-scene", action="store_true",
                    help="skip the two multi-source scene scenarios (batch "
-                        "dedup+fused and batched grouped one-hot gates — "
-                        "the daemon/--scene production kernels)")
+                        "dedup and direct gates — the daemon/--scene "
+                        "production programs)")
     p.add_argument("--scene-sources", type=int, default=16,
                    help="sources per scene scenario (default 16)")
     p.add_argument("--write-dir", default=None,
@@ -285,8 +248,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     # ONE renderer across the sweep and mover gates (and --write-dir): its
     # jit caches are per-instance, so a second instance re-pays identical
-    # chunk-program compiles — 20 s-5 min each through the remote service
-    # (cli --selftest-full threads a shared renderer for the same reason)
+    # chunk-program compiles (cli --selftest-full shares one likewise)
     renderer = Renderer(db, config)
     reports = run_benchmark_sweep(
         signal, db, config, blocks_per_step=args.blocks, num_steps=args.steps,
@@ -303,17 +265,12 @@ def main(argv=None) -> int:
         )
         names.append("mover")
     if not args.no_scene:
-        from ..engine.renderer import fused_supported
-
         nb_scene = args.blocks * (args.steps + 1)
         for scenario in ("hold", "movers"):
             reports.append(run_scene_gate(
                 signal, db, config, scenario=scenario,
                 num_sources=args.scene_sources, num_blocks=nb_scene,
                 eps=args.eps,
-                # the dispatch pin only makes sense where the fused kernels
-                # actually run (TPU); CPU runs still gate the XLA batch path
-                require_dispatch=fused_supported(),
             ))
             names.append(f"scene_{scenario}")
     ok = True

@@ -1,6 +1,6 @@
 """Engine configuration.
 
-TPU-native re-design of the reference's compile-time constant header
+Re-design of the reference's compile-time constant header
 (reference: Jefferson/src/Universal.cuh:1-34).  Everything the reference fixes
 at compile time (block size, HRIR length, FFT pad length, sample rate, process
 type) is a runtime-configurable frozen dataclass here; jitted functions treat
@@ -18,7 +18,8 @@ class ProcessType(enum.IntEnum):
     """Processing pipeline selector.
 
     Mirrors ``enum class processes`` (reference: Jefferson/src/Universal.cuh:25-32)
-    with the GPU_* entries mapped to the TPU (JAX/XLA) engine and the CPU_*
+    with the GPU_* entries mapped to the JAX/XLA accelerator engine (the
+    TPU_* names are historical) and the CPU_*
     entries mapped to the NumPy oracle.  Integer values match the reference's
     ``-t`` CLI flag (reference: Jefferson/src/main.cu:22-58).
     """

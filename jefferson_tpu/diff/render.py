@@ -175,7 +175,8 @@ class DifferentiableRenderer:
                 t = jnp.transpose(blocks, (2, 0, 1)).reshape(2, 1, -1)
                 k = win[None, None, :]
                 y = jax.lax.conv_general_dilated(
-                    t, k, (1,), "SAME", dimension_numbers=("NCH", "OIH", "NCH")
+                    t, k, (1,), "SAME", dimension_numbers=("NCH", "OIH", "NCH"),
+                    precision=jax.lax.Precision.HIGHEST,  # no TF32 on a GPU
                 )
                 return jnp.transpose(y.reshape(2, b, -1), (1, 2, 0))
 

@@ -2,10 +2,10 @@
 
 The reference mixes sources serially inside the audio callback (reference:
 Jefferson/src/Audio.cu:98-158, one GPUSoundSource per source with its own 8
-CUDA streams).  TPU-native: sources are a vmapped batch axis over the same
-chunk pipeline, and the batch shards across chips via a 1-D
-``jax.sharding.Mesh`` — independent streams need no collectives; only the
-optional mixdown reduces across the source axis (GSPMD inserts the psum).
+CUDA streams).  Here sources are a batch axis over the same chunk pipeline,
+and the batch shards across devices via a 1-D ``jax.sharding.Mesh`` —
+independent streams need no collectives; only the optional mixdown reduces
+across the source axis (GSPMD inserts the psum).
 """
 
 from __future__ import annotations
@@ -18,10 +18,9 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..config import EngineConfig
-from ..pallas.fused_step import maybe_lane512
 from ..hrtf.kemar import HRTFDatabase
-from .plan import compact_filter_ids, fed_stream, make_plan
-from .renderer import _StrikeMixin, _fd_complex_chunk
+from .plan import fed_stream, make_plan
+from .renderer import _apply_xfade_amortization, _fd_complex_chunk
 
 
 def batched_chunk_fn(config: EngineConfig, num_blocks: int, with_xfade: bool = True):
@@ -36,8 +35,7 @@ def batched_chunk_fn(config: EngineConfig, num_blocks: int, with_xfade: bool = T
 
     Not a vmap: after the per-source forward transform, sources x blocks are
     fully independent rows, so the filter core runs on the flattened
-    (S*nb, bins) layout — one tall matrix per op instead of S short ones
-    (a vmapped inner nb of 32 leaves 3/4 of the MXU rows idle).
+    (S*nb, bins) layout — one tall matrix per op instead of S short ones.
     """
     from ..ops import fft as fft_ops
     from .renderer import apply_filters_core, blend_channels
@@ -132,382 +130,17 @@ def batched_chunk_fn_dedup(config: EngineConfig, num_blocks: int, with_xfade: bo
     return fn
 
 
-def batched_chunk_fn_fused(
-    config: EngineConfig,
-    num_blocks: int,
-    tb: int,
-    onehot: bool = False,
-    group_tiles: int | None = None,
-    n_dist: int | None = None,
-    lane512: bool | None = None,
-    fwd512: bool | None = None,
-    tail_tree: bool | None = None,
-):
-    """Fused-kernel variant of batched_chunk_fn (TPU only; crossfade form).
-
-    Signature: (spectra, hists (S, hist), feds, idx_old (S, nb, 4),
-    w_old, idx_last (S, 4), w_last, xfade (S, nb), u_hi, u_lo, inv_frac)
-    -> (outs (S, nb, fpb, 2), new_hists).  See renderer._fd_complex_chunk_fused.
-
-    onehot=True switches to the compact-table signature: idx_old/idx_last
-    become ridx/ridx_last (ids remapped into the unique-filter table) and a
-    leading ``uniq_ids (U_pad,)`` argument selects the table rows — the
-    kernel then blends on the MXU with zero filter gathers (1.86x the
-    gather form at the bench shape, PERF.md).
-    """
-    from ..ops import fft as fft_ops
-    from ..ops.filters import cmul, distance_factors_split
-    from ..pallas.fused_apply import fused_apply_xfade
-    from .renderer import blend_cat, cat_table
-
-    fpb = config.frames_per_buffer
-    assert config.history_len % fpb == 0, "fused path needs aligned geometry"
-    from .renderer import _resolve_fwd512, _resolve_lane512, _resolve_tail_tree
-
-    lane512 = _resolve_lane512(lane512, config, gather=not onehot)
-    # the fully-fused step needs num_blocks | tb (tiles own whole sources,
-    # the kernel's tb % nb == 0 assert); the fused_apply fallback keeps the
-    # classic layout
-    lane512 = lane512 and tb % num_blocks == 0
-    fwd512 = _resolve_fwd512(fwd512, lane512) and onehot
-    tail_tree = _resolve_tail_tree(tail_tree)
-
-    if onehot:
-        from ..pallas.fused_step import fused_step_onehot_xfade
-
-        def fn_onehot(spectra, hists, feds, uniq_ids, ridx, w_old, ridx_last,
-                      w_last, xfade, u_hi, u_lo, inv_frac, dsel=None):
-            s = hists.shape[0]
-            b = s * num_blocks
-            streams = jnp.concatenate([hists, feds], axis=1)
-            new_hists = streams[:, num_blocks * fpb :]
-            flat = lambda a: a.reshape((b,) + a.shape[2:])
-            col = lambda a: flat(a)[:, None]
-            table = jnp.take(cat_table(spectra), uniq_ids, axis=0)
-            table = maybe_lane512(table, lane512, config.num_bins)
-            if n_dist is None:
-                duh, dul, ddf, ds = col(u_hi), col(u_lo), col(inv_frac), None
-            else:  # compact distance: (8,) triples + (S, nb) selector
-                duh, dul, ddf = u_hi[:, None], u_lo[:, None], inv_frac[:, None]
-                ds = col(dsel)
-            y = fused_step_onehot_xfade(
-                streams, duh, dul, ddf,
-                table, flat(ridx), flat(w_old),
-                ridx_last, w_last, flat(xfade).astype(jnp.float32)[:, None],
-                nb=num_blocks, pad_len=config.pad_len,
-                bins=config.num_bins, fpb=fpb, tb=tb, group_tiles=group_tiles,
-                dsel=ds, n_dist=n_dist, lane512=lane512, fwd512=fwd512,
-                tail_tree=tail_tree,
-            )
-            out = jnp.transpose(y.reshape(s, num_blocks, 2, fpb), (0, 1, 3, 2))
-            return out, new_hists
-
-        return fn_onehot
-
-    def fn(spectra, hists, feds, idx_old, w_old, idx_last, w_last, xfade,
-           u_hi, u_lo, inv_frac, dsel=None):
-        s = hists.shape[0]
-        b = s * num_blocks
-        streams = jnp.concatenate([hists, feds], axis=1)
-        new_hists = streams[:, num_blocks * fpb :]
-        flat = lambda a: a.reshape((b,) + a.shape[2:])
-        col = lambda a: flat(a)[:, None]
-        # packed rows: 20% less blend traffic than a stride-padded table
-        # (Mosaic slices the unaligned plane offsets fine — PERF.md)
-        cat = cat_table(spectra)
-        cat = maybe_lane512(cat, lane512, config.num_bins)
-        g_old = blend_cat(cat, flat(idx_old), flat(w_old))
-        g_last = blend_cat(cat, idx_last, w_last)
-        xf = flat(xfade).astype(jnp.float32)[:, None]
-        if tb % num_blocks == 0:
-            # fully fused step: forward DFT + distance cmul in-kernel too
-            # (bit-identical to the split form on chip; strictly less HBM
-            # traffic — PERF.md)
-            from ..pallas.fused_step import fused_step_xfade
-
-            if n_dist is None:
-                duh, dul, ddf, ds = col(u_hi), col(u_lo), col(inv_frac), None
-            else:
-                duh, dul, ddf = u_hi[:, None], u_lo[:, None], inv_frac[:, None]
-                ds = col(dsel)
-            y = fused_step_xfade(
-                streams, duh, dul, ddf, g_old, g_last, xf,
-                nb=num_blocks, pad_len=config.pad_len,
-                bins=config.num_bins, fpb=fpb, tb=tb,
-                dsel=ds, n_dist=n_dist, lane512=lane512, tail_tree=tail_tree,
-            )
-        else:
-            xr, xi = fft_ops.rfft_sliding_split_batched(
-                streams, num_blocks, fpb, config.pad_len
-            )
-            dr, di = distance_factors_split(
-                flat(u_hi), flat(u_lo), flat(inv_frac), config.num_bins
-            )
-            xdr, xdi = cmul(flat(xr), flat(xi), dr, di)
-            icr, ici = fft_ops._idft_tail_matrices(config.pad_len, fpb)
-            y = fused_apply_xfade(
-                xdr, xdi, g_old, g_last, xf,
-                jnp.asarray(icr), jnp.asarray(ici),
-                seg=num_blocks, bins=config.num_bins, fpb=fpb, tb=tb,
-                tail_tree=tail_tree,
-            )
-        out = jnp.transpose(y.reshape(s, num_blocks, 2, fpb), (0, 1, 3, 2))
-        return out, new_hists
-
-    return fn
-
-
-def batched_chunk_fn_dedup_fused(config: EngineConfig, num_blocks: int, tb: int,
-                                 n_dist: int | None = None,
-                                 lane512: bool | None = None,
-                                 tail_tree: bool | None = None,
-                                 with_xfade: bool = True,
-                                 n_cf: int | None = None):
-    """Dedup + fused composition for the batched/sharded form: blend only
-    the unique (index, weight) rows (scene sources usually hold positions),
-    broadcast with one row gather, and run the fused step kernel.  Mirrors
-    renderer._fd_complex_chunk_dedup_fused — the single-source renderer's
-    fastest measured mode on the reference workload (PERF.md).
-
-    Signature: (spectra, hists (S, hist), feds, uniq_idx (U, 4), uniq_w,
-    inv_old (S, nb) int32 — unique-row id of each block's OLD filters,
-    inv_last (S,) int32 — id of each source's final new row, xfade, u_hi,
-    u_lo, inv_frac) -> (outs (S, nb, fpb, 2), new_hists).
-
-    ``with_xfade=False`` (round 5): the chunk has no crossfading block —
-    ``inv_old`` carries the NEW-row ids, inv_last/xfade are ignored (same
-    signature, the jit drops them), and the kernel runs the no-crossfade
-    fast path (half the tail-IDFT MACs; bit-identical on such chunks).
-
-    ``n_cf`` (round 5, sparse crossfades; requires with_xfade=False): at
-    most n_cf rows crossfade per shard — the no-crossfade kernel runs for
-    ALL rows and an XLA side-pass re-blends just the ``cf_idx`` rows
-    (renderer._sparse_xfade_fix); one program covers every chunk.  Under
-    shard_map the cf_idx arrive as SHARD-LOCAL row ids (one (n_cf,) slice
-    per device); cf_old ids index the replicated unique-row blend.
-    """
-    from ..ops import fft as fft_ops
-    from ..ops.filters import cmul, distance_factors_split
-    from ..pallas.fused_apply import fused_apply_xfade
-    from .renderer import _sparse_xfade_fix, blend_cat, cat_table
-
-    fpb = config.frames_per_buffer
-    assert config.history_len % fpb == 0, "fused path needs aligned geometry"
-    from .renderer import _resolve_lane512, _resolve_tail_tree
-
-    lane512 = _resolve_lane512(lane512, config, gather=True)
-    lane512 = lane512 and tb % num_blocks == 0
-    tail_tree = _resolve_tail_tree(tail_tree)
-    sparse = n_cf is not None
-    assert not (sparse and with_xfade), "sparse mode implies the no-crossfade kernel"
-    assert not (sparse and n_dist is not None), \
-        "sparse side-pass keeps per-row ramps (gather-form policy)"
-
-    def fn(spectra, hists, feds, uniq_idx, uniq_w, inv_old, inv_last, xfade,
-           u_hi, u_lo, inv_frac, dsel=None, cf_idx=None, cf_old=None):
-        s = hists.shape[0]
-        b = s * num_blocks
-        streams = jnp.concatenate([hists, feds], axis=1)
-        new_hists = streams[:, num_blocks * fpb :]
-        flat = lambda a: a.reshape((b,) + a.shape[2:])
-        col = lambda a: flat(a)[:, None]
-        # the unique-row blend is tiny (U rows) and replicated across the
-        # mesh; the per-block broadcast is one padded-row gather
-        cat0 = cat_table(spectra)
-        cat = maybe_lane512(cat0, lane512, config.num_bins)
-        g_u = blend_cat(cat, uniq_idx, uniq_w)                 # (U, 4*bins)
-        g_rows = jnp.take(g_u, inv_old.reshape(-1), axis=0)    # (S*nb, 4*bins)
-        if with_xfade:
-            g_last = jnp.take(g_u, inv_last, axis=0)           # (S, 4*bins)
-            xf = flat(xfade).astype(jnp.float32)[:, None]
-        else:
-            g_last, xf = None, None
-        if tb % num_blocks == 0:
-            from ..pallas.fused_step import fused_step_xfade
-
-            if n_dist is None:
-                duh, dul, ddf, ds = col(u_hi), col(u_lo), col(inv_frac), None
-            else:
-                duh, dul, ddf = u_hi[:, None], u_lo[:, None], inv_frac[:, None]
-                ds = col(dsel)
-            y = fused_step_xfade(
-                streams, duh, dul, ddf, g_rows, g_last, xf,
-                nb=num_blocks, pad_len=config.pad_len,
-                bins=config.num_bins, fpb=fpb, tb=tb,
-                dsel=ds, n_dist=n_dist, lane512=lane512, tail_tree=tail_tree,
-                with_xfade=with_xfade,
-            )
-        else:
-            xr, xi = fft_ops.rfft_sliding_split_batched(
-                streams, num_blocks, fpb, config.pad_len
-            )
-            dr, di = distance_factors_split(
-                flat(u_hi), flat(u_lo), flat(inv_frac), config.num_bins
-            )
-            xdr, xdi = cmul(flat(xr), flat(xi), dr, di)
-            icr, ici = fft_ops._idft_tail_matrices(config.pad_len, fpb)
-            y = fused_apply_xfade(
-                xdr, xdi, g_rows, g_last, xf,
-                jnp.asarray(icr), jnp.asarray(ici),
-                seg=num_blocks, bins=config.num_bins, fpb=fpb, tb=tb,
-                tail_tree=tail_tree, with_xfade=with_xfade,
-            )
-        if sparse:
-            # classic-layout blend of ONLY the n_cf old rows (see the
-            # single-source form); in the fused_apply fallback branch the
-            # forward planes already exist for all rows — gather them
-            # instead of recomputing (bit-identical, same association)
-            g_old_cf = blend_cat(cat0, jnp.take(uniq_idx, cf_old, axis=0),
-                                 jnp.take(uniq_w, cf_old, axis=0))
-            have_planes = tb % num_blocks != 0
-            y = _sparse_xfade_fix(
-                y, streams.reshape(-1, fpb), cf_idx, g_old_cf,
-                flat(xfade), flat(u_hi), flat(u_lo), flat(inv_frac),
-                config=config, nb_seg=num_blocks,
-                xr_cf=flat(xr)[cf_idx] if have_planes else None,
-                xi_cf=flat(xi)[cf_idx] if have_planes else None,
-            )
-        out = jnp.transpose(y.reshape(s, num_blocks, 2, fpb), (0, 1, 3, 2))
-        return out, new_hists
-
-    return fn
-
-
-# Geometry policy for the batched grouped one-hot (round 4): grouped tables
-# only pay when group-aligned tiles keep the default row count — each tile
-# DMAs its group's whole (U_pad, 4*bins) table into VMEM, a fixed cost
-# amortized over the tile's rows.  At full tiles the grouped blend measured
-# 1.24-2.38x the gather path, but when groups force tiles down to 128 rows
-# the same-session A/Bs read 0.82-1.24x (cross-session parity at best,
-# PERF.md round 3/4; scripts/bench_scene_movers.py) — so shrunken-tile
-# geometries dispatch to the gather blend instead.  The single-stream
-# grouped form (renderer.plan_onehot_chunking) never shrinks tiles (groups
-# are multiples of the tile there), so this policy is batched-only.
-GROUPED_MIN_TB = 256
-
-# Target rows per fused step for AUTO chunk sizing on hold scenes: 8192-row
-# steps measured 1.14-1.20x over 16-64k-row steps at s = 64/128/256 on chip
-# (scripts/bench_chunksize.py; outputs bit-identical across chunkings).
-AUTO_HOLD_ROWS = 8192
-
-
-def _auto_chunk(s_local: int, b_total: int, plans, fused: bool = True) -> int:
-    """Chunk size for ``chunk_blocks=None``: 256 — the fused-step ceiling
-    (above it the dispatch falls back to fused_apply, measured ~2x slower)
-    — lowered by powers of two toward ~AUTO_HOLD_ROWS rows per step when
-    crossfades past block 0 are absent (hold scenes: measured 1.14-1.20x
-    at s=64/128/256) or sparse (<= 1/16 of rows, the sparse-side-pass
-    regime; reference cadence 172 at s=128 measured 1.074x — all
-    bit-identical, scripts/bench_chunksize.py).  Movers keep 256: the
-    grouped one-hot path wants tiles owning few sources, and the
-    hold-step measurements don't transfer.
-
-    ``fused=False`` (the XLA fallback path — CPU daemons, fused A/Bs,
-    struck-out geometries): both numbers above are fused-STEP-kernel
-    measurements; the XLA chain only pays per-chunk dispatch for smaller
-    chunks (host-level dispatch penalty class, PERF.md dead ends), so it
-    keeps the pre-retune 512-block default."""
-    if not fused:
-        return 512
-    cb = 256
-    if not (s_local and b_total and plans):
-        return cb
-    cf = sum(int(p.xfade[1:].sum()) for p in plans)
-    if cf * 16 <= len(plans) * max(1, b_total - 1):
-        while cb > 8 and s_local * cb > AUTO_HOLD_ROWS:
-            cb //= 2
-    return cb
-
-
-def _group_bucket(idx_old, idx_last, group: int | None) -> int:
-    """Power-of-two bucket covering every source-group's unique-filter set
-    (group=None: one group of all sources).  idx_old (S, nb, 4);
-    idx_last (S, 4).  THE single bucket rule — renderer.plan_onehot_chunking
-    has the block-axis analogue; keep them in step."""
-    s = idx_old.shape[0]
-    spans = [(0, s)] if group is None else [(st, st + group) for st in range(0, s, group)]
-    m = 1
-    for st, sp in spans:
-        ids = np.concatenate([idx_old[st:sp].reshape(-1), idx_last[st:sp].reshape(-1)])
-        m = max(m, len(np.unique(ids)))
-    return max(8, 1 << int(np.ceil(np.log2(m))))
-
-
-def _plan_source_groups(idx_old, idx_last, s_local: int, tb_sources: int):
-    """(group_sources, u_pad) for the batched grouped one-hot, or (None, None).
-
-    Groups must be whole multiples of the tile's sources (tiles own whole
-    sources) and divide the per-shard source count (grouped tables shard by
-    source under shard_map).  Halve from s_local until every group's unique
-    set fits the VMEM gate."""
-    from ..pallas.fused_step import MAX_ONEHOT_U
-
-    s = idx_old.shape[0]
-    group = s_local
-    while True:
-        if group < tb_sources or group % tb_sources or s % group:
-            return None, None
-        u_pad = _group_bucket(idx_old, idx_last, group)
-        if u_pad <= MAX_ONEHOT_U:
-            return group, u_pad
-        if group // 2 < tb_sources or group % 2:
-            return None, None
-        group //= 2
-
-
-def _plan_batch_onehot(plans, b_total: int, cb: int, s_local: int):
-    """Render-wide one-hot plan for the batched form.
-
-    Returns ('shared', u_pad) — one table bucket for every chunk —
-    or ('grouped', g_srcs, u_pad) — per-source-group tables, one group
-    size and bucket for every chunk — or None (gather blend).  One plan
-    per render keeps table shapes (and thus compiled programs) fixed
-    across chunks; per-chunk buckets would recompile whenever a chunk
-    straddles a power-of-two unique count (each remote compile is
-    20 s - 5 min), mirroring renderer.plan_onehot_chunking.
-
-    Group viability is monotone (a sub-group's unique set is a subset), so
-    the render-wide group is the MINIMUM of the per-chunk group sizes and
-    the bucket is the maximum per-chunk bucket at that group.  Chunk index
-    stacks are built one at a time and discarded (not held for the render).
-    """
-    from ..pallas.fused_step import MAX_ONEHOT_U
-
-    spans = [(st, min(st + cb, b_total)) for st in range(0, b_total, cb)]
-
-    def chunk_arrays(start, stop):
-        return (
-            np.stack([p.idx_old[start:stop] for p in plans]),
-            np.stack([p.idx_new[stop - 1] for p in plans]),
-        )
-
-    shared, g_min = 1, None
-    for start, stop in spans:
-        io, il = chunk_arrays(start, stop)
-        shared = max(shared, _group_bucket(io, il, None))
-        if shared > MAX_ONEHOT_U and g_min != 0:
-            g, _ = _plan_source_groups(io, il, s_local, 1)
-            g_min = 0 if g is None else min(g, g_min or g)
-    if shared <= MAX_ONEHOT_U:
-        return ("shared", shared)
-    if not g_min:
-        return None
-    u = 1
-    for start, stop in spans:
-        io, il = chunk_arrays(start, stop)
-        u = max(u, _group_bucket(io, il, g_min))
-    if u > MAX_ONEHOT_U:  # cannot happen by monotonicity, but stay safe
-        return None
-    return ("grouped", g_min, u)
-
-
 def mix_sources(outs: jax.Array) -> jax.Array:
     """(S, nb, fpb, 2) per-source stereo -> (nb, fpb, 2) mixed (summed, like
     the reference's output accumulation, reference: Jefferson/src/Audio.cu:109)."""
     return jnp.sum(outs, axis=0)
 
 
-class BatchRenderer(_StrikeMixin):
+# Blocks per compiled chunk when the caller does not pin one.
+DEFAULT_CHUNK_BLOCKS = 512
+
+
+class BatchRenderer:
     """Render S concurrent independent source streams, optionally sharded.
 
     signals: (S, n) float32 — one mono stream per source.
@@ -519,167 +152,45 @@ class BatchRenderer(_StrikeMixin):
         self,
         db: HRTFDatabase,
         config: EngineConfig | None = None,
-        # None = auto per render (_auto_chunk): 256 — the fused-step
-        # ceiling; chunk sizes above it fall back to fused_apply, measured
-        # ~2x slower — lowered toward ~8192-row steps on hold scenes
-        # (measured 1.14-1.20x at s=64/128/256, bit-identical across
-        # chunkings; scripts/bench_chunksize.py).  An explicit int pins
-        # the chunk size for every render.
         chunk_blocks: int | None = None,
         mesh: Mesh | None = None,
         mix: bool = False,
         dedup: bool = True,
-        fused: bool | None = None,
-        lane512: bool | None = None,
-        fwd512: bool | None = None,
-        tail_tree: bool | None = None,
-        sparse_xfade: bool = True,
         # overlap chunk i+1's dispatch with chunk i's output fetch (see
         # renderer.Renderer pipeline_fetch — same contract: bit-identical
-        # ordering, deferred failures strike the producing arm and both
-        # affected chunks re-render via the XLA batch program from the
-        # saved pre-chunk histories; designed for direct-attached TPUs,
-        # ~neutral through a host relay)
+        # output and ordering)
         pipeline_fetch: bool = False,
     ):
-        from .renderer import fused_supported
-
+        """``chunk_blocks``: blocks per compiled chunk (None = DEFAULT_CHUNK_BLOCKS)."""
         self.db = db
         self.config = config or db.config
         if chunk_blocks is not None and chunk_blocks < 1:
             raise ValueError(f"chunk_blocks ({chunk_blocks}) must be positive")
-        self.chunk_blocks = chunk_blocks
+        self.chunk_blocks = DEFAULT_CHUNK_BLOCKS if chunk_blocks is None else chunk_blocks
         if mesh is not None and len(mesh.axis_names) != 1:
-            # the shard planning below (sparse cf buckets, chunk padding)
-            # uses mesh.size as the SOURCE shard count, which is only the
-            # source-axis extent on a 1-D mesh
+            # the shard planning below uses mesh.size as the SOURCE shard
+            # count, which is only the source-axis extent on a 1-D mesh
             raise ValueError(
                 f"BatchRenderer needs a 1-D source mesh, got axes {mesh.axis_names}"
             )
         self.mesh = mesh
         self.mix = mix
-        # lane-aligned 512-bin kernel layout (None = module defaults)
-        self.lane512 = lane512
-        self.fwd512 = fwd512
-        self.tail_tree = tail_tree  # pairwise-tree tail-IDFT contraction
-        # sparse-crossfade side-pass (round 5): False forces the classic
-        # crossfade programs (A/Bs; scripts/bench_noxfade.py)
-        self.sparse_xfade = sparse_xfade
         self.pipeline_fetch = pipeline_fetch
         aligned = self.config.history_len % self.config.frames_per_buffer == 0
         self.dedup = dedup and aligned
-        if fused is None:
-            fused = fused_supported()
-        # sharded renders wrap the fused kernel in shard_map (sources are
-        # fully data-parallel; each device runs the kernel on its shard)
-        self.fused = fused and aligned
         self._spectra = (
             jnp.asarray(np.real(db.spectra).astype(np.float32)),
             jnp.asarray(np.imag(db.spectra).astype(np.float32)),
         )
         self._jitted = {}
-        # cross-render failure counts per fused variant (see
-        # renderer._MAX_FUSED_STRIKES): flaky compiles retry next render,
-        # deterministic failures stop being attempted
-        self._fused_strikes: dict[tuple, int] = {}
 
-    def _get_fn(self, nb: int, dedup_key=None, fused_tb=None, onehot=False,
-                group_tiles=None, nd=None, xf=True, ncf=None):
-        # ``xf``: per-chunk crossfade variant (round 5) — crossfade-free
-        # chunks (hold scenes past chunk 0, steady-state steps) compile the
-        # no-crossfade program: half the tail-IDFT MACs, no old-side rows.
-        # ``ncf``: sparse-crossfade bucket (no-crossfade kernel + XLA
-        # side-pass over <= ncf rows; one program for every chunk).
-        key = (nb, dedup_key, fused_tb, onehot, group_tiles, nd, xf, ncf)
+    def _get_fn(self, nb: int, dedup_key=None, xf=True):
+        # ``xf``: per-chunk crossfade variant — crossfade-free chunks (hold
+        # scenes past chunk 0, steady-state steps) compile the no-crossfade
+        # program: half the tail-IDFT MACs, no old-side rows.
+        key = (nb, dedup_key, xf)
         if key not in self._jitted:
-            if fused_tb is not None and dedup_key is not None:
-                # dedup + fused composition (the fastest measured mode when
-                # positions persist, PERF.md)
-                fn = batched_chunk_fn_dedup_fused(self.config, nb, tb=fused_tb,
-                                                  n_dist=nd,
-                                                  lane512=self.lane512,
-                                                  tail_tree=self.tail_tree,
-                                                  with_xfade=xf, n_cf=ncf)
-                if self.mesh is not None:
-                    from jax.experimental.shard_map import shard_map
-
-                    src = self.mesh.axis_names[0]
-                    sh = lambda k: P(src, *([None] * (k - 1)))
-                    # compact distance: (8,) triples replicate, (S, nb)
-                    # selector shards by source
-                    dspecs = (
-                        (sh(2), sh(2), sh(2))
-                        if nd is None
-                        else (P(), P(), P(), sh(2))
-                    )
-                    # sparse cf operands (round 5): dsel placeholder (None
-                    # -> empty pytree, any spec prefix) + per-shard cf-row
-                    # buckets, packed (n_dev*ncf,) and sharded so each
-                    # device sees ITS (ncf,) slice of SHARD-LOCAL row ids;
-                    # cf_old ids index the replicated unique-row table
-                    cfspecs = () if ncf is None else (P(), sh(1), sh(1))
-                    fn = shard_map(
-                        fn,
-                        mesh=self.mesh,
-                        in_specs=(
-                            (P(), P()),    # spectra: replicated planes
-                            sh(2), sh(2),  # hists, feds
-                            P(), P(),      # uniq_idx, uniq_w (replicated)
-                            sh(2), sh(1),  # inv_old, inv_last
-                            sh(2),         # xfade
-                            *dspecs,       # u_hi, u_lo, inv_frac[, dsel]
-                            *cfspecs,      # [dsel None, cf_idx, cf_old]
-                        ),
-                        out_specs=(sh(4), sh(2)),
-                        check_rep=False,
-                    )
-            elif fused_tb is not None:
-                fn = batched_chunk_fn_fused(
-                    self.config, nb, tb=fused_tb, onehot=onehot,
-                    group_tiles=group_tiles, n_dist=nd, lane512=self.lane512,
-                    fwd512=self.fwd512, tail_tree=self.tail_tree,
-                )
-                if self.mesh is not None:
-                    from jax.experimental.shard_map import shard_map
-
-                    src = self.mesh.axis_names[0]
-                    sh = lambda k: P(src, *([None] * (k - 1)))
-                    dspecs = (
-                        (sh(2), sh(2), sh(2))
-                        if nd is None
-                        else (P(), P(), P(), sh(2))
-                    )
-                    if onehot:
-                        in_specs = (
-                            (P(), P()),    # spectra: replicated planes
-                            sh(2), sh(2),  # hists, feds
-                            # grouped tables shard by source group (groups
-                            # align with source shards); one shared table
-                            # replicates
-                            sh(1) if group_tiles is not None else P(),
-                            sh(3), sh(3),  # ridx, w_old
-                            sh(2), sh(2),  # ridx_last, w_last
-                            sh(2),         # xfade
-                            *dspecs,       # u_hi, u_lo, inv_frac[, dsel]
-                        )
-                    else:
-                        in_specs = (
-                            (P(), P()),  # spectra: replicated planes
-                            sh(2),       # hists
-                            sh(2),       # feds
-                            sh(3), sh(3),  # idx_old, w_old
-                            sh(2), sh(2),  # idx_last, w_last
-                            sh(2),       # xfade
-                            *dspecs,     # u_hi, u_lo, inv_frac[, dsel]
-                        )
-                    fn = shard_map(
-                        fn,
-                        mesh=self.mesh,
-                        in_specs=in_specs,
-                        out_specs=(sh(4), sh(2)),
-                        check_rep=False,
-                    )
-            elif dedup_key is None:
+            if dedup_key is None:
                 fn = batched_chunk_fn(self.config, nb, with_xfade=xf)
             else:
                 fn = batched_chunk_fn_dedup(self.config, nb, with_xfade=xf)
@@ -699,13 +210,16 @@ class BatchRenderer(_StrikeMixin):
             return jnp.asarray(x)
         if np.shape(x)[0] % self.mesh.size:
             # a mesh that does not divide the leading axis cannot shard it
-            # evenly (jax rejects the uneven device_put) — replicate, which
-            # is the XLA-fallback degradation render() already plans for
-            # when mesh_divides is False
+            # evenly (jax rejects the uneven device_put) — replicate
             return jax.device_put(x, NamedSharding(self.mesh, P()))
         axis = self.mesh.axis_names[0]
         spec = P(axis, *([None] * (np.ndim(x) - 1)))
         return jax.device_put(x, NamedSharding(self.mesh, spec))
+
+    def _replicate(self, x: np.ndarray) -> jax.Array:
+        if self.mesh is None:
+            return jnp.asarray(x)
+        return jax.device_put(x, NamedSharding(self.mesh, P()))
 
     def render(self, signals: np.ndarray, positions: np.ndarray) -> np.ndarray:
         """signals (S, n); positions (S, B, 3) -> (S, B*fpb, 2) or mixed (B*fpb, 2)."""
@@ -715,59 +229,19 @@ class BatchRenderer(_StrikeMixin):
         positions = np.asarray(positions)
         s, b_total = positions.shape[0], positions.shape[1]
         plans = [make_plan(positions[i], cfg) for i in range(s)]
-        # chunk size: explicit int pins it; None resolves per render (the
-        # target is per-DEVICE rows, so a mesh divides the source count).
-        # A mesh the source count does NOT divide can never dispatch a
-        # fused kernel (s_local = 0 in the chunk loop), so auto sizing must
-        # use the XLA default there — the fused-step chunk numbers would
-        # just multiply host dispatches on the XLA path (CLAUDE.md)
-        n_dev_cb = self.mesh.size if self.mesh is not None else 1
-        mesh_divides = s % n_dev_cb == 0
-        cb = (
-            self.chunk_blocks
-            if self.chunk_blocks is not None
-            else _auto_chunk(
-                s // n_dev_cb if mesh_divides else s, b_total, plans,
-                fused=self.fused and mesh_divides,
-            )
-        )
+        cb = self.chunk_blocks
         b_real = b_total
         if b_total % cb:
             # pad the final partial chunk to the fixed chunk size (output
-            # trimmed at return): every distinct partial size minted its
+            # trimmed at return): every distinct partial size would mint its
             # own programs, retained in self._jitted — in a daemon serving
-            # varied durations that is a compile per novel b_total % cb
-            # (20 s–5 min each through the remote service) and the RSS
-            # growth class CLAUDE.md's one-program rule exists to prevent.
+            # varied durations that is a compile per novel b_total % cb.
             # The single-source Renderer already pads its final chunk.
             from .plan import pad_plan
 
             pad_b = cb - (b_total % cb)
             plans = [pad_plan(p, pad_b) for p in plans]
             b_total += pad_b
-        # compact distance (bit-identical; renderer.dedup_distance): dedup
-        # the (u_hi, u_lo, inv_frac) triples across the WHOLE batch (tiles
-        # span sources) — constant-radius scenes yield a handful of uniques
-        from .renderer import dedup_distance
-
-        dist = (
-            dedup_distance(
-                np.concatenate([p.u_hi for p in plans]),
-                np.concatenate([p.u_lo for p in plans]),
-                np.concatenate([p.inv_frac for p in plans]),
-            )
-            if b_total
-            else None
-        )
-        nd = None if dist is None else dist[4]
-        if dist is not None:
-            rep_d = (
-                jnp.asarray
-                if self.mesh is None
-                else (lambda x: jax.device_put(x, NamedSharding(self.mesh, P())))
-            )
-            d_triples = (rep_d(dist[0]), rep_d(dist[1]), rep_d(dist[2]))
-            dsel_all = dist[3].reshape(s, b_total)
         feds = np.stack([fed_stream(signals[i], b_total, cfg) for i in range(s)])
         hists = self._shard(np.zeros((s, cfg.history_len), np.float32))
 
@@ -799,40 +273,8 @@ class BatchRenderer(_StrikeMixin):
             if u_pad * 2 > s * (min(cb, b_total) + 1):
                 dedup_chunks = None
 
-        # sparse-crossfade planning (round 5; see renderer.render_plan):
-        # when every chunk's per-SHARD crossfade count fits a small bucket,
-        # one no-crossfade-kernel + XLA-side-pass program covers every
-        # chunk; under a mesh each device fixes up its own shard-local cf
-        # rows (the bucket covers the worst shard).
-        from .renderer import _pad_cf_indices, _sparse_bucket
-
-        sparse_ncf = None
-        n_dev_sp = self.mesh.size if self.mesh is not None else 1
-        if (
-            dedup_chunks is not None
-            and self.fused
-            and self.sparse_xfade
-            and s % n_dev_sp == 0
-            and self.config.history_len % fpb == 0
-            and b_total
-        ):
-            # per-SHARD bucket: under a mesh each device handles its own
-            # cf rows, so the bucket must cover the worst (chunk, shard)
-            sl_sp = s // n_dev_sp
-            max_ncf = max(
-                int(sum(p.xfade[st : min(st + cb, b_total)].sum()
-                        for p in plans[d * sl_sp : (d + 1) * sl_sp]))
-                for st in range(0, b_total, cb)
-                for d in range(n_dev_sp)
-            )
-            sparse_ncf = _sparse_bucket(
-                max_ncf, sl_sp * min(cb, b_total)
-            )
-
         # per-chunk crossfade flags under the renderer's shared amortization
         # guard (a lone crossfade-free chunk is not worth a second compile)
-        from .renderer import _apply_xfade_amortization
-
         chunk_xfs = _apply_xfade_amortization([
             bool(any(p.xfade[st : min(st + cb, b_total)].any()
                      for p in plans))
@@ -840,103 +282,17 @@ class BatchRenderer(_StrikeMixin):
         ])
 
         outs = []
-        # fused variants disabled for the rest of THIS render on a
-        # compile/runtime-stack failure; retried on the next render
-        # (see renderer._is_fused_fallback_error)
-        fused_off = False
+        # pipelined output fetch (opt-in): one chunk deep, like
+        # renderer.render_plan — `outs` slots are appended at fetch time so
+        # ordering is preserved
+        pending = None
 
-        # ---- pipelined output fetch (opt-in; see renderer.render_plan —
-        # same one-chunk-deep design, with `outs` slots appended at flush
-        # time so ordering is preserved) ----
-        pipelined = bool(self.pipeline_fetch)
-        pending: list | None = None  # [start, stop, y, skey, jkey, name, hists_before]
-
-        def _xla_redo_batch(start_, stop_, hists_in):
-            """Re-render one chunk of ALL sources from clean histories via
-            the direct XLA batch program (deferred-failure redo path)."""
-            sl_ = slice(start_, stop_)
-            cxf_ = chunk_xfs[start_ // cb] if chunk_xfs else True
-            fn_ = self._get_fn(stop_ - start_, xf=cxf_)
-            a_ = dict(
-                fed=feds[:, start_ * fpb : stop_ * fpb],
-                idx_new=np.stack([p.idx_new[sl_] for p in plans]),
-                w_new=np.stack([p.w_new[sl_] for p in plans]),
-                idx_old=np.stack([p.idx_old[sl_] for p in plans]),
-                w_old=np.stack([p.w_old[sl_] for p in plans]),
-                xfade=np.stack([p.xfade[sl_] for p in plans]),
-                u_hi=np.stack([p.u_hi[sl_] for p in plans]),
-                u_lo=np.stack([p.u_lo[sl_] for p in plans]),
-                inv_frac=np.stack([p.inv_frac[sl_] for p in plans]),
-            )
-            sh_ = {k: self._shard(v) for k, v in a_.items()}
-            y_, hists_ = fn_(
-                self._spectra, hists_in, sh_["fed"], sh_["idx_new"],
-                sh_["w_new"], sh_["idx_old"], sh_["w_old"], sh_["xfade"],
-                sh_["u_hi"], sh_["u_lo"], sh_["inv_frac"],
-            )
-            return np.asarray(y_), hists_
-
-        def _flush_pending():
-            """Fetch the deferred chunk; append its rows to ``outs``.
-            Returns None, or the clean post-redo histories the CURRENT
-            (already-dispatched) chunk must be re-rendered from."""
-            nonlocal pending, fused_off
-            if pending is None:
-                return None
-            pstart, pstop, py, pskey, pjkey, pname, phists = pending
-            pending = None
-            try:
-                y_np_ = np.asarray(py)
-            except Exception as e:
-                from .renderer import (
-                    _is_fused_fallback_error, _warn_fused_fallback,
-                )
-
-                if pskey is None or not _is_fused_fallback_error(e):
-                    raise
-                fused_off = True
-                self._jitted.pop(pjkey, None)
-                _warn_fused_fallback(
-                    e, pname, "the XLA batch path (deferred-fetch redo)",
-                    strikes=self._variant_result(pskey, False),
-                )
-                y_np_, hists_ = _xla_redo_batch(pstart, pstop, phists)
-                outs.append(y_np_)
-                return hists_
-            outs.append(y_np_)
-            if pskey is not None:
-                self._variant_result(pskey, True)
-            return None
-
-        def _commit(y_, y_np_, hists_f_, skey=None, jkey=None, name=None):
-            """Shared success-path commit; returns the histories to carry.
-            Sync mode (``y_np_`` materialized inside the arm's try): record
-            and append now.  Pipelined: flush the previous chunk (the
-            overlap), redo both chunks via XLA if it failed, else defer
-            this one."""
+        def flush():
             nonlocal pending
-            if y_np_ is not None:
-                if skey is not None:
-                    self._variant_result(skey, True)
-                outs.append(y_np_)
-                return hists_f_
-            redo_hists = _flush_pending()
-            if redo_hists is not None:
-                y_np_, hists_ = _xla_redo_batch(start, stop, redo_hists)
-                outs.append(y_np_)
-                return hists_
-            pending = [start, stop, y_, skey, jkey, name, hists]
-            return hists_f_
-        # render-wide one-hot plan (one bucket -> one compiled program per
-        # render; see _plan_batch_onehot) — only relevant when dedup does
-        # not apply (movers)
-        onehot_plan = None
-        if self.fused and dedup_chunks is None and b_total:
-            n_dev = self.mesh.size if self.mesh is not None else 1
-            if s % n_dev == 0:
-                onehot_plan = _plan_batch_onehot(
-                    plans, b_total, cb, s // n_dev
-                )
+            if pending is not None:
+                outs.append(np.asarray(pending))
+                pending = None
+
         for ci, start in enumerate(range(0, b_total, cb)):
             stop = min(start + cb, b_total)
             nb = stop - start
@@ -948,256 +304,7 @@ class BatchRenderer(_StrikeMixin):
                 u_lo=np.stack([p.u_lo[sl] for p in plans]),
                 inv_frac=np.stack([p.inv_frac[sl] for p in plans]),
             )
-            # per-chunk crossfade flag (round 5): crossfade-free chunks
-            # (hold scenes past chunk 0) use the no-crossfade programs —
-            # half the tail-IDFT MACs, no old-side rows, bit-identical
-            cxf = chunk_xfs[ci] if chunk_xfs else True
-            if self.fused and not fused_off:
-                from .renderer import pick_fused_tile
-
-                n_dev = self.mesh.size if self.mesh is not None else 1
-                s_local = s // n_dev if s % n_dev == 0 else 0
-                tb_f = pick_fused_tile(s_local * nb, nb) if s_local else None
-            else:
-                tb_f = None
-            # strike keys include the program geometry: a partial final
-            # chunk compiles its own program, and its deterministic failure
-            # must accumulate strikes independently of the full-size chunks
-            # (otherwise success on one size resets the other's count and
-            # the cap never engages)
-            # sparse program covers crossfading AND crossfade-free chunks
-            dxf = cxf and sparse_ncf is None
-            if (
-                tb_f is not None and dedup_chunks is not None
-                and not self._variant_ok(
-                    ("dedup_fused", nb, u_pad, tb_f, dxf, sparse_ncf))
-            ):
-                tb_f = None
-            if tb_f is not None and dedup_chunks is not None:
-                # dedup + fused composition: the common scene case (sources
-                # hold positions) gets both the near-free deduped blend and
-                # the fused kernel (renderer measured 0.96 ms vs 1.04 dedup
-                # / 1.93 direct on the reference workload, PERF.md)
-                uniq_idx, uniq_w, inv = dedup_chunks[ci]
-                if uniq_idx.shape[0] < u_pad:
-                    reps = u_pad - uniq_idx.shape[0]
-                    uniq_idx = np.concatenate([uniq_idx, np.repeat(uniq_idx[-1:], reps, 0)])
-                    uniq_w = np.concatenate([uniq_w, np.repeat(uniq_w[-1:], reps, 0)])
-                fn = self._get_fn(nb, dedup_key=u_pad, fused_tb=tb_f, xf=dxf,
-                                  ncf=sparse_ncf)
-                rep = (
-                    jnp.asarray
-                    if self.mesh is None
-                    else (lambda x: jax.device_put(x, NamedSharding(self.mesh, P())))
-                )
-                sharded = {k: self._shard(v) for k, v in args.items()}
-                if sparse_ncf is not None:
-                    # per-shard packing: each device's (ncf,) slice holds
-                    # SHARD-LOCAL row ids (meshless: one shard = the batch)
-                    sl_sp = s // n_dev_sp
-                    cfi_sh, old_sh = [], []
-                    for d in range(n_dev_sp):
-                        xf_d = args["xfade"][d * sl_sp : (d + 1) * sl_sp]
-                        cfi_d = _pad_cf_indices(xf_d.reshape(-1), sparse_ncf)
-                        cfi_sh.append(cfi_d)
-                        old_sh.append(
-                            inv[d * sl_sp : (d + 1) * sl_sp, :nb].reshape(-1)[cfi_d]
-                        )
-                    cf_args = (
-                        None,  # dsel placeholder
-                        self._shard(np.concatenate(cfi_sh).astype(np.int32)),
-                        self._shard(np.concatenate(old_sh)),
-                    )
-                else:
-                    cf_args = ()
-                try:
-                    y, hists_f = fn(
-                        self._spectra,
-                        hists,
-                        sharded["fed"],
-                        rep(uniq_idx),
-                        rep(uniq_w),
-                        # ext rows are [old_start, new_0..new_{nb-1}]:
-                        # [:nb] is OLD-aligned (old[b] == new[b-1]),
-                        # [1:] the NEW rows (no-crossfade/sparse programs),
-                        # [nb] is the final new row
-                        self._shard(np.ascontiguousarray(
-                            inv[:, :nb] if dxf else inv[:, 1:]
-                        )),
-                        self._shard(np.ascontiguousarray(inv[:, nb])),
-                        sharded["xfade"],
-                        sharded["u_hi"],
-                        sharded["u_lo"],
-                        sharded["inv_frac"],
-                        *cf_args,
-                    )
-                    # materialize BEFORE recording success or rebinding
-                    # hists: dispatch is async, and a run-stage failure
-                    # surfacing at asarray must leave hists unpoisoned for
-                    # the fallback and count as a strike.  Pipelined mode
-                    # defers the fetch to _commit in the else clause —
-                    # OUTSIDE this try, so a deferred predecessor failure
-                    # is redone, never misattributed to this arm.
-                    y_np = None if pipelined else np.asarray(y)
-                except Exception as e:
-                    from .renderer import _is_fused_fallback_error, _warn_fused_fallback
-
-                    if not _is_fused_fallback_error(e):
-                        raise
-                    fused_off = True
-                    self._jitted.pop(
-                        (nb, u_pad, tb_f, False, None, None, dxf, sparse_ncf),
-                        None)
-                    _warn_fused_fallback(
-                        e, "dedup+fused batch", "the XLA dedup batch path",
-                        strikes=self._variant_result(
-                            ("dedup_fused", nb, u_pad, tb_f, dxf, sparse_ncf),
-                            False
-                        ),
-                    )
-                    # fall through to the XLA dedup dispatch for this chunk
-                else:
-                    hists = _commit(
-                        y, y_np, hists_f,
-                        ("dedup_fused", nb, u_pad, tb_f, dxf, sparse_ncf),
-                        (nb, u_pad, tb_f, False, None, None, dxf, sparse_ncf),
-                        "dedup+fused batch",
-                    )
-                    continue
-            elif tb_f is not None:
-                idx_old_np = np.stack([p.idx_old[sl] for p in plans])
-                idx_last_np = np.stack([p.idx_new[stop - 1] for p in plans])
-                onehot = False
-                group_tiles = None
-                g_srcs = g_upad = None
-                if onehot_plan is not None and onehot_plan[0] == "shared":
-                    # the one-hot STEP kernel's tiles own whole sources
-                    # (tb % nb == 0, its trace-time assert); explicit
-                    # chunk_blocks > 256 gives tb < nb, which must route to
-                    # the gather blend instead of crashing the render (the
-                    # grouped branch below already guards this)
-                    onehot = tb_f % nb == 0
-                elif onehot_plan is not None:
-                    # wide scene: per-source-group compact tables inside the
-                    # same dispatch (round 3; see plan.compact_filter_ids_
-                    # grouped_sources).  Groups need not align with the
-                    # default tile: re-pick one bounded by the group — the
-                    # tile must still own WHOLE sources (tb % nb == 0, the
-                    # kernel's contract) and never straddle a group.
-                    _, g_srcs, g_upad = onehot_plan
-                    # tiles never exceed 256 rows regardless of group span:
-                    # (TB, pad_len) stream tiles at TB >= 512 overflow VMEM
-                    # (PERF.md kernel tile sweep)
-                    tb_g = pick_fused_tile(
-                        s_local * nb, nb, max_tb=min(256, g_srcs * nb)
-                    )
-                    if tb_g is not None and (tb_g % nb or (g_srcs * nb) % tb_g):
-                        # one source per tile always satisfies both (Mosaic
-                        # still needs the sublane multiple)
-                        tb_g = nb if nb % 8 == 0 and nb <= 256 else None
-                    if tb_g is not None and tb_g < GROUPED_MIN_TB:
-                        # shrunken-tile geometry: the per-tile table DMA no
-                        # longer amortizes — measured slower than the gather
-                        # blend (see GROUPED_MIN_TB above)
-                        tb_g = None
-                    if tb_g is not None:
-                        onehot = True
-                        tb_f = tb_g
-                        group_tiles = (g_srcs * nb) // tb_f
-                # strike keys carry the FULL program geometry (incl. the
-                # table bucket and compact-distance nd — distinct compiles
-                # whose failures must accumulate independently, like the
-                # single-source renderer's okey)
-                upad_key = (g_upad if group_tiles is not None
-                            else onehot_plan[1]) if onehot else None
-                skey = ("mover", nb, tb_f, onehot, group_tiles, upad_key,
-                        nd if onehot else None)
-                if onehot and not self._variant_ok(skey):
-                    # this one-hot geometry is struck: downgrade to the
-                    # gather blend (a different program that may still work)
-                    onehot, group_tiles = False, None
-                    tb_f = pick_fused_tile(s_local * nb, nb)
-                    skey = ("mover", nb, tb_f, False, None, None, None)
-                if tb_f is None or not self._variant_ok(skey):
-                    tb_f = None  # fall to the XLA dispatch below
-            if tb_f is not None and dedup_chunks is None:
-                if onehot and group_tiles is not None:
-                    from .plan import compact_filter_ids_grouped_sources
-
-                    uniq_ids, ridx, ridx_last = compact_filter_ids_grouped_sources(
-                        idx_old_np, idx_last_np, g_srcs, g_upad
-                    )
-                elif onehot:
-                    uniq_ids, ridx, ridx_last, u_pad = compact_filter_ids(
-                        idx_old_np, idx_last_np, u_pad=onehot_plan[1]
-                    )
-                fn = self._get_fn(
-                    nb, fused_tb=tb_f, onehot=onehot, group_tiles=group_tiles,
-                    nd=nd if onehot else None,
-                )
-                sharded = {k: self._shard(v) for k, v in args.items()}
-                rep = (
-                    jnp.asarray
-                    if self.mesh is None
-                    else (lambda x: jax.device_put(x, NamedSharding(self.mesh, P())))
-                )
-                if onehot:
-                    # grouped tables shard by source group; one shared table
-                    # replicates across the mesh
-                    ids_put = (
-                        self._shard(uniq_ids) if group_tiles is not None
-                        else rep(uniq_ids)
-                    )
-                    head = (ids_put, self._shard(ridx))
-                    last = self._shard(ridx_last)
-                else:
-                    head = (self._shard(idx_old_np),)
-                    last = self._shard(idx_last_np)
-                try:
-                    y, hists_f = fn(
-                        self._spectra,
-                        hists,
-                        sharded["fed"],
-                        *head,
-                        self._shard(np.stack([p.w_old[sl] for p in plans])),
-                        last,
-                        self._shard(np.stack([p.w_new[stop - 1] for p in plans])),
-                        sharded["xfade"],
-                        *(
-                            (sharded["u_hi"], sharded["u_lo"], sharded["inv_frac"])
-                            if nd is None or not onehot
-                            else (*d_triples,
-                                  self._shard(np.ascontiguousarray(dsel_all[:, sl])))
-                        ),
-                    )
-                    # materialize before success/hists commit (async
-                    # run-stage failure must fall back clean; pipelined:
-                    # deferred to _commit in the else clause, outside this
-                    # try — see the dedup+fused arm above)
-                    y_np = None if pipelined else np.asarray(y)
-                except Exception as e:
-                    from .renderer import _is_fused_fallback_error, _warn_fused_fallback
-
-                    if not _is_fused_fallback_error(e):
-                        raise
-                    fused_off = True
-                    self._jitted.pop(
-                        (nb, None, tb_f, onehot, group_tiles,
-                         nd if onehot else None, True, None), None)
-                    _warn_fused_fallback(
-                        e, "one-hot batch" if onehot else "gather batch",
-                        "the XLA batch path",
-                        strikes=self._variant_result(skey, False),
-                    )
-                    # fall through to the direct/dedup dispatch for this chunk
-                else:
-                    hists = _commit(
-                        y, y_np, hists_f, skey,
-                        (nb, None, tb_f, onehot, group_tiles,
-                         nd if onehot else None, True, None),
-                        "one-hot batch" if onehot else "gather batch",
-                    )
-                    continue
+            cxf = chunk_xfs[ci]
             if dedup_chunks is not None:
                 uniq_idx, uniq_w, inv = dedup_chunks[ci]
                 if uniq_idx.shape[0] < u_pad:
@@ -1205,18 +312,13 @@ class BatchRenderer(_StrikeMixin):
                     uniq_idx = np.concatenate([uniq_idx, np.repeat(uniq_idx[-1:], reps, 0)])
                     uniq_w = np.concatenate([uniq_w, np.repeat(uniq_w[-1:], reps, 0)])
                 fn = self._get_fn(nb, dedup_key=u_pad, xf=cxf)
-                rep = (
-                    jnp.asarray
-                    if self.mesh is None
-                    else (lambda x: jax.device_put(x, NamedSharding(self.mesh, P())))
-                )
                 sharded = {k: self._shard(v) for k, v in args.items()}
-                y, hists_f = fn(
+                y, hists = fn(
                     self._spectra,
                     hists,
                     sharded["fed"],
-                    rep(uniq_idx),
-                    rep(uniq_w),
+                    self._replicate(uniq_idx),
+                    self._replicate(uniq_w),
                     # extended rows for the crossfade program, NEW rows
                     # ([:, 1:]) for the no-crossfade one
                     self._shard(inv if cxf else np.ascontiguousarray(inv[:, 1:])),
@@ -1225,33 +327,33 @@ class BatchRenderer(_StrikeMixin):
                     sharded["u_lo"],
                     sharded["inv_frac"],
                 )
-                hists = _commit(y, None if pipelined else np.asarray(y), hists_f)
-                continue
-            fn = self._get_fn(nb, xf=cxf)
-            args.update(
-                idx_new=np.stack([p.idx_new[sl] for p in plans]),
-                w_new=np.stack([p.w_new[sl] for p in plans]),
-                idx_old=np.stack([p.idx_old[sl] for p in plans]),
-                w_old=np.stack([p.w_old[sl] for p in plans]),
-            )
-            sharded = {k: self._shard(v) for k, v in args.items()}
-            y, hists_f = fn(
-                self._spectra,
-                hists,
-                sharded["fed"],
-                sharded["idx_new"],
-                sharded["w_new"],
-                sharded["idx_old"],
-                sharded["w_old"],
-                sharded["xfade"],
-                sharded["u_hi"],
-                sharded["u_lo"],
-                sharded["inv_frac"],
-            )
-            hists = _commit(y, None if pipelined else np.asarray(y), hists_f)
-        # drain the deferred final chunk (pipelined mode); a failure there
-        # was redone inside the flush and has no dispatched successor
-        _flush_pending()
+            else:
+                fn = self._get_fn(nb, xf=cxf)
+                args.update(
+                    idx_new=np.stack([p.idx_new[sl] for p in plans]),
+                    w_new=np.stack([p.w_new[sl] for p in plans]),
+                    idx_old=np.stack([p.idx_old[sl] for p in plans]),
+                    w_old=np.stack([p.w_old[sl] for p in plans]),
+                )
+                sharded = {k: self._shard(v) for k, v in args.items()}
+                y, hists = fn(
+                    self._spectra,
+                    hists,
+                    sharded["fed"],
+                    sharded["idx_new"],
+                    sharded["w_new"],
+                    sharded["idx_old"],
+                    sharded["w_old"],
+                    sharded["xfade"],
+                    sharded["u_hi"],
+                    sharded["u_lo"],
+                    sharded["inv_frac"],
+                )
+            flush()
+            pending = y
+            if not self.pipeline_fetch:
+                flush()
+        flush()
         if self.mix:
             return np.concatenate(outs, axis=0).reshape(b_total * fpb, 2)[: b_real * fpb]
         return np.concatenate(outs, axis=1).reshape(s, b_total * fpb, 2)[:, : b_real * fpb]

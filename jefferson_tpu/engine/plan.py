@@ -154,117 +154,6 @@ def dedup_rows(idx: np.ndarray, w: np.ndarray):
     )
 
 
-def _compact_table(ids: np.ndarray, u_pad: int, what: str):
-    """Unique ids padded to ``u_pad`` (repeat-last) + a remap LUT — the one
-    shared implementation behind every one-hot compact-table builder (the
-    padding/overflow policy must stay uniform across the variants)."""
-    uniq = np.unique(ids)
-    if len(uniq) > u_pad:
-        raise ValueError(f"{what}: {len(uniq)} unique filters exceed the bucket {u_pad}")
-    lut = np.zeros(int(ids.max()) + 1, np.int32)
-    lut[uniq] = np.arange(len(uniq), dtype=np.int32)
-    pad = np.concatenate([uniq, np.repeat(uniq[-1:], u_pad - len(uniq))]).astype(np.int32)
-    return pad, lut
-
-
-def compact_filter_ids(idx_old: np.ndarray, idx_last: np.ndarray, u_pad: int | None = None):
-    """Unique filter ids + remapped bracket indices for the one-hot kernel.
-
-    A chunk of real trajectories touches only a small subset of the 710
-    filters (the bench workload: 68), so the blend can run against a
-    compact VMEM-resident table.  Returns (uniq_ids (U_pad,) padded to a
-    power of two, ridx like idx_old, ridx_last like idx_last, U_pad).
-
-    ``u_pad``: optional render-wide bucket — every chunk of a render pads
-    to the same table width so the whole render compiles ONE one-hot
-    program (per-chunk buckets would recompile whenever a chunk straddles
-    a power-of-two unique count; each remote compile is 20 s - 5 min).
-    """
-    idx_old = np.asarray(idx_old, np.int32)
-    idx_last = np.asarray(idx_last, np.int32)
-    all_ids = np.concatenate([idx_old.reshape(-1), idx_last.reshape(-1)])
-    if u_pad is None:
-        u_pad = max(8, 1 << int(np.ceil(np.log2(len(np.unique(all_ids))))))
-    uniq_pad, lut = _compact_table(all_ids, u_pad, "chunk")
-    return uniq_pad, lut[idx_old], lut[idx_last], u_pad
-
-
-def compact_filter_ids_grouped(
-    idx_old: np.ndarray, idx_last: np.ndarray, group: int, tb: int, u_pad: int
-):
-    """Per-GROUP compact tables for the grouped one-hot kernel.
-
-    Wide movers touch more unique filters per chunk than the VMEM gate
-    allows; splitting the chunk into groups of ``group`` blocks, each with
-    its own compact table, keeps every tile's table resident while the
-    whole chunk stays ONE kernel dispatch (the kernel block-slices the
-    stacked table by tile group).
-
-    idx_old: (B, 4) OLD-aligned rows; idx_last: (1, 4) the chunk's final
-    new row; ``tb``: kernel tile (boundary rows are per tile);
-    ``u_pad``: the render-wide bucket (from renderer.plan_onehot_chunking).
-
-    Returns (uniq_ids (G*u_pad,), ridx (B, 4), rbnd (n_tiles, 4)) — all
-    remapped into the OWNING group's table (each group's table includes
-    its boundary row's filters, so the roll patch resolves locally).
-    """
-    idx_old = np.asarray(idx_old, np.int32)
-    idx_last = np.asarray(idx_last, np.int32)
-    b = idx_old.shape[0]
-    assert b % group == 0 and group % tb == 0
-    n_tiles = b // tb
-    tables, ridx = [], np.empty_like(idx_old)
-    rbnd = np.empty((n_tiles, 4), np.int32)
-    for g, start in enumerate(range(0, b, group)):
-        stop = start + group
-        # per-tile boundary rows owned by this group: next tile's first old
-        # row; the chunk-final tile takes idx_last
-        bnds = np.concatenate(
-            [idx_old[start + tb : stop : tb], idx_old[stop : stop + 1]]
-            if stop < b
-            else [idx_old[start + tb : stop : tb], idx_last]
-        )
-        ids = np.concatenate([idx_old[start:stop].reshape(-1), bnds.reshape(-1)])
-        table, lut = _compact_table(ids, u_pad, f"group {g}")
-        tables.append(table)
-        ridx[start:stop] = lut[idx_old[start:stop]]
-        rbnd[start // tb : stop // tb] = lut[bnds]
-    return np.concatenate(tables), ridx, rbnd
-
-
-def compact_filter_ids_grouped_sources(
-    idx_old: np.ndarray, idx_last: np.ndarray, group_sources: int, u_pad: int
-):
-    """Per-SOURCE-GROUP compact tables for the batched one-hot kernel.
-
-    Wide scenes (many sources moving across the sphere) exceed one compact
-    table's VMEM gate; groups of consecutive sources share a table slice
-    instead (the batched kernel's tiles own whole sources, so grouping by
-    source needs no boundary handling — each source's roll patch is its own
-    last-new row).
-
-    idx_old: (S, nb, 4); idx_last: (S, 4).  Returns (uniq_ids
-    (G*u_pad,), ridx (S, nb, 4), rlast (S, 4)), ids remapped per group.
-    """
-    idx_old = np.asarray(idx_old, np.int32)
-    idx_last = np.asarray(idx_last, np.int32)
-    s = idx_old.shape[0]
-    assert s % group_sources == 0
-    tables = []
-    ridx = np.empty_like(idx_old)
-    rlast = np.empty_like(idx_last)
-    for g, start in enumerate(range(0, s, group_sources)):
-        stop = start + group_sources
-        ids = np.concatenate(
-            [idx_old[start:stop].reshape(-1), idx_last[start:stop].reshape(-1)]
-        )
-        table, lut = _compact_table(ids, u_pad, f"group {g}")
-        tables.append(table)
-        ridx[start:stop] = lut[idx_old[start:stop]]
-        rlast[start:stop] = lut[idx_last[start:stop]]
-    return np.concatenate(tables), ridx, rlast
-
-
 def fed_stream(signal: np.ndarray, num_blocks: int, config: EngineConfig = DEFAULT_CONFIG) -> np.ndarray:
     """The sample stream the engine consumes: the input repeated (wrapping
     playhead, reference: Jefferson/src/Audio.cu:121-139) and truncated to

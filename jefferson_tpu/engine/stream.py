@@ -3,7 +3,7 @@
 Two forms:
 
 * ``render_scan`` — the whole render as one ``lax.scan`` over blocks inside a
-  single jit.  This is the TPU-native shape of the reference's realtime loop
+  single jit.  This is the device-resident shape of the reference's realtime loop
   (reference: Jefferson/src/Audio.cu:94-163): the overlap-save buffer is the
   scan carry instead of a mutable pinned-host array.  Used as a cross-check
   of the batched renderer and as the pattern for future feedback effects

@@ -1,6 +1,6 @@
 """MIT KEMAR HRTF database: grid tables, nearest-filter picking, loaders.
 
-TPU-native rebuild of the reference's HRTF database layer (reference:
+Rebuild of the reference's HRTF database layer (reference:
 Jefferson/src/hrtf_signals.cu).  The nonuniform KEMAR grid — 14 elevations
 -40..90 deg step 10, per-elevation azimuth increments — and the
 nearest-neighbor ``pick_hrtf`` scan are reproduced exactly, including the
@@ -141,7 +141,7 @@ class HRTFDatabase:
                   ``hrirs`` — the same batched-FFTW convention the reference
                   uploads to the GPU unchanged (reference:
                   Jefferson/src/hrtf_signals.cu:113-118, :248), so the oracle
-                  and the TPU engine share bit-identical filter spectra.
+                  and the accelerator engine share bit-identical filter spectra.
     """
 
     hrirs: np.ndarray

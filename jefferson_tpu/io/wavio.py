@@ -2,7 +2,7 @@
 
 The reference links libsndfile for all file I/O (reference:
 Jefferson/src/cudaPart.cu:21-63 reads, Jefferson/src/Audio.cu:161 writes
-24-bit PCM blocks).  This module is the TPU build's equivalent: PCM
+24-bit PCM blocks).  This module is the rebuild's equivalent: PCM
 8/16/24/32 and IEEE-float 32/64 readers, PCM16/24/32 + float32 writers, a
 block-streaming writer for incremental renders, and the stereo->mono
 downmix the reference applies on read.
@@ -257,7 +257,7 @@ def write_wav(
 class StreamingWavWriter:
     """Append blocks to a WAV file incrementally.
 
-    TPU-native analogue of the reference's per-callback ``sf_writef_float``
+    Analogue of the reference's per-callback ``sf_writef_float``
     append (reference: Jefferson/src/Audio.cu:161): partial renders survive
     because the header is patched on every flush/close.
     """

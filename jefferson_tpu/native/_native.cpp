@@ -3,7 +3,7 @@
 // The reference's host runtime is native C++ throughout (libsndfile I/O,
 // pinned-buffer block feeding, overlap-save memmove — reference:
 // Jefferson/src/Audio.cu:119-157, Jefferson/src/cudaPart.cu:21-63).  This
-// module is the TPU build's native equivalent for the host-side hot paths:
+// module is the rebuild's native equivalent for the host-side hot paths:
 //
 //   decode_wav(bytes)                 -> (float32 array [frames, ch], rate)
 //   encode_pcm(float32 array, bits)   -> bytes (PCM 16/24/32, interleaved)

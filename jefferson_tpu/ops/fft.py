@@ -2,10 +2,11 @@
 
 The reference's cuFFT plans (R2C 1024, batched C2R with interleaved output,
 reference: Jefferson/src/GPUSoundSource.cu:44-71) map to XLA's FFT HLO via
-``jnp.fft.rfft/irfft``.  A DFT-as-matmul backend is also provided: at the
-fixed engine size (1024 -> 513 bins) the transform is small enough that two
-fp32 matmuls on the MXU can beat the FFT HLO for large batches, and the
-matmul form is what the fused Pallas kernel uses.
+``jnp.fft.rfft/irfft`` (cuFFT on the GPU).  A DFT-as-matmul backend is also
+provided: at the fixed engine size (1024 -> 513 bins) the transform is two
+fp32 matmuls, and its inverse can be truncated to the output tail.  Every
+matmul here runs at Precision.HIGHEST: left at DEFAULT, an fp32 product may
+run in TF32 on a GPU, far outside the reference's 2e-7 gate.
 
 Convention: ``rfft`` is unnormalized, ``irfft`` carries the 1/N — together
 they reproduce the reference's forward-1/N + unnormalized-C2R pipeline
@@ -27,6 +28,16 @@ def rfft(x: jax.Array, n: int | None = None) -> jax.Array:
 
 
 def irfft(x: jax.Array, n: int) -> jax.Array:
+    """C2R that reads only the real part of the DC and Nyquist bins.
+
+    NumPy/SciPy (the oracle) and the matmul basis ignore those imaginary
+    parts; cuFFT's C2R assumes they are zero and answers otherwise when they
+    are not.  The distance factor's phase ramp makes the Nyquist bin complex
+    (measured 5.4e-3 off the oracle on an H100), so they are zeroed here.
+    """
+    k = jnp.arange(x.shape[-1])
+    edge = (k == 0) | ((k == n // 2) if n % 2 == 0 else False)
+    x = jax.lax.complex(jnp.real(x), jnp.where(edge, 0.0, jnp.imag(x)))
     return jnp.fft.irfft(x, n=n, axis=-1)
 
 
@@ -62,7 +73,7 @@ def _idft_matrices(n: int):
 
 
 def rfft_matmul(x: jax.Array, n: int) -> jax.Array:
-    """(…, n) real -> (…, n//2+1) complex64 via two MXU matmuls."""
+    """(…, n) real -> (…, n//2+1) complex64 via two matmuls."""
     cr, ci = _dft_matrices(n)
     re = jnp.matmul(x, cr, precision=jax.lax.Precision.HIGHEST)
     im = jnp.matmul(x, ci, precision=jax.lax.Precision.HIGHEST)
@@ -70,7 +81,7 @@ def rfft_matmul(x: jax.Array, n: int) -> jax.Array:
 
 
 def irfft_matmul(spec: jax.Array, n: int) -> jax.Array:
-    """(…, n//2+1) complex -> (…, n) real via two MXU matmuls (includes 1/N)."""
+    """(…, n//2+1) complex -> (…, n) real via two matmuls (includes 1/N)."""
     cr, ci = _idft_matrices(n)
     y = jnp.matmul(jnp.real(spec), cr, precision=jax.lax.Precision.HIGHEST)
     y = y + jnp.matmul(jnp.imag(spec), ci, precision=jax.lax.Precision.HIGHEST)
@@ -78,7 +89,7 @@ def irfft_matmul(spec: jax.Array, n: int) -> jax.Array:
 
 
 def get_backend(name: str):
-    """'fft' -> XLA FFT HLO; 'matmul' -> MXU DFT matmuls."""
+    """'fft' -> XLA FFT HLO; 'matmul' -> DFT matmuls."""
     if name == "fft":
         return rfft, irfft
     if name == "matmul":
@@ -87,9 +98,8 @@ def get_backend(name: str):
 
 
 # --- split (real/imag plane) transforms -----------------------------------
-# The deployed TPU runtime exposes no complex64 or FFT HLO, so the flagship
-# engine path works on explicit real/imaginary float32 planes: the R2C DFT is
-# two MXU matmuls, and the C2R inverse only materializes the final
+# The matmul-backend engine path works on explicit real/imaginary float32
+# planes: the R2C DFT is two matmuls, and the C2R inverse only materializes the final
 # ``tail`` output samples (the engine discards everything before the last
 # frames_per_buffer samples of every block, so the inverse basis is truncated
 # to its last ``tail`` columns — an 8x FLOP cut at the default 1024/128).
@@ -159,7 +169,7 @@ def rfft_sliding_split(stream: jax.Array, num_blocks: int, sub: int, n: int):
 def rfft_sliding_split_batched(streams: jax.Array, num_blocks: int, sub: int, n: int):
     """Batched rfft_sliding_split: streams (S, num_blocks*sub + n - sub) ->
     ((S, num_blocks, bins) re, im).  The sub-block DFT matmul is flattened
-    over sources so the MXU sees one tall matrix instead of S short ones."""
+    over sources into one tall matrix instead of S short ones."""
     q = n // sub
     s = streams.shape[0]
     rows = num_blocks + q - 1

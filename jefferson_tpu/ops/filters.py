@@ -69,17 +69,21 @@ def blend_filters(spectra: jax.Array, indices: jax.Array, weights: jax.Array) ->
     indices: (B, 4) int32, weights: (B, 4) float32 (effective case weights)
     -> (B, 2, bins) complex64
 
-    This one gather+einsum replaces the reference's caseOne..caseFour kernel
+    This one gather+blend replaces the reference's caseOne..caseFour kernel
     chains (reference: Jefferson/src/GPUSoundSource.cu:118-317): the case
     logic is already folded into the weights host-side.
     """
-    gathered = spectra[indices]  # (B, 4, 2, bins)
+    # a multiply-add per bracket, not a contraction: an fp32 dot left at
+    # DEFAULT precision may run in TF32 on a GPU, far outside the 2e-7 gate
     w = weights.astype(jnp.float32)
-    return jnp.einsum("bk,bkcf->bcf", jax.lax.complex(w, jnp.zeros_like(w)), gathered)
+    acc = w[:, 0, None, None] * spectra[indices[:, 0]]
+    for j in range(1, indices.shape[1]):
+        acc = acc + w[:, j, None, None] * spectra[indices[:, j]]
+    return acc
 
 
 # --- split (real/imag plane) variants --------------------------------------
-# Used by the flagship TPU path (no complex64 on the deployed runtime).
+# Used by the matmul-backend engine path (explicit real/imag float32 planes).
 
 
 def cmul(ar: jax.Array, ai: jax.Array, br: jax.Array, bi: jax.Array):
@@ -101,8 +105,11 @@ def distance_factors_split(u_hi, u_lo, inv_frac, num_bins: int):
 def blend_filters_split(spec_r: jax.Array, spec_i: jax.Array, indices: jax.Array, weights: jax.Array):
     """Gather + blend on (num_hrtf, 2, bins) float32 planes -> (B, 2, bins) x2."""
     w = weights.astype(jnp.float32)
-    gr = jnp.einsum("bk,bkcf->bcf", w, jnp.take(spec_r, indices, axis=0))
-    gi = jnp.einsum("bk,bkcf->bcf", w, jnp.take(spec_i, indices, axis=0))
+    gr = w[:, 0, None, None] * jnp.take(spec_r, indices[:, 0], axis=0)
+    gi = w[:, 0, None, None] * jnp.take(spec_i, indices[:, 0], axis=0)
+    for j in range(1, indices.shape[1]):  # multiply-add, as blend_filters
+        gr = gr + w[:, j, None, None] * jnp.take(spec_r, indices[:, j], axis=0)
+        gi = gi + w[:, j, None, None] * jnp.take(spec_i, indices[:, j], axis=0)
     return gr, gi
 
 
@@ -110,13 +117,11 @@ def blend_channel(table: jax.Array, indices: jax.Array, weights: jax.Array) -> j
     """Weighted 4-row gather from one (num_hrtf, bins) channel plane -> (B, bins).
 
     Unrolled per bracket: XLA lowers each term to a single row-gather fused
-    with the scale/add.  ~3x faster than the einsum-over-(B,4,...) form and,
-    with per-channel (bins)-wide rows, free of the (…, 2, bins) sublane
-    padding that quadruples HBM traffic on TPU.
+    with the scale/add.
 
-    NOTE: the production engine now blends all four planes at once from the
-    combined-plane table (engine/renderer.blend_cat — another 1.57x,
-    PERF.md); this per-plane form is kept as the simple reference shape.
+    NOTE: the production engine blends all four planes at once from the
+    combined-plane table (engine/renderer.blend_cat); this per-plane form
+    is kept as the simple reference shape.
     """
     w = weights.astype(jnp.float32)
     acc = w[:, 0:1] * jnp.take(table, indices[:, 0], axis=0)

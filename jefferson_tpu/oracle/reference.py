@@ -2,7 +2,7 @@
 
 This is the parity anchor of the framework, in the same role the FFTW
 implementation plays for the CUDA engine in the reference (reference:
-Jefferson/src/CPUSoundSource.cpp, Jefferson/src/functions.cpp): every TPU
+Jefferson/src/CPUSoundSource.cpp, Jefferson/src/functions.cpp): every accelerator
 kernel is validated stage-by-stage and end-to-end against this module.
 
 FFT convention note: FFTW R2C/C2R are unnormalized and the reference scales
@@ -289,7 +289,7 @@ def render_oracle(
     by pre-seeding the first position.
     ``td_gain``: TD-path output gain (clamped <= 1); 1.0 = the reference's
     CPU TD semantics, config.source_gain = its GPU TD semantics (which the
-    TPU engine implements) — see OracleSpatializer.td_convolve.
+    accelerator engine implements) — see OracleSpatializer.td_convolve.
     """
     positions = list(positions)
     sp = OracleSpatializer(db, config)
@@ -311,3 +311,39 @@ def render_oracle(
         out[b * fpb : (b + 1) * fpb] = sp.process(ptype)
         sp.overlap_save()
     return out
+
+
+def render_oracle_many(
+    jobs,
+    db: HRTFDatabase,
+    config: EngineConfig = DEFAULT_CONFIG,
+    initial_old: tuple[float, float] | None = (0.0, 0.0),
+    workers: int = 1,
+) -> list[np.ndarray]:
+    """``render_oracle`` of each ``(signal, positions)`` job, in order.
+
+    The oracle is a per-block Python loop (~0.5 ms a block), so a 16-source
+    full-length scene gate takes minutes on one core.  ``workers`` > 1
+    renders the jobs in that many spawned processes, which hold JAX to the
+    CPU: they never open an accelerator the calling process holds.
+    """
+    jobs = [(np.asarray(s, dtype=_F32), [tuple(p) for p in pos]) for s, pos in jobs]
+    workers = min(workers, len(jobs))
+    if workers <= 1:
+        return [render_oracle(s, db, p, config, initial_old=initial_old) for s, p in jobs]
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    saved = os.environ.get("JAX_PLATFORMS")
+    os.environ["JAX_PLATFORMS"] = "cpu"  # inherited by the spawned workers
+    try:
+        with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+            futures = [ex.submit(render_oracle, s, db, p, config, initial_old=initial_old)
+                       for s, p in jobs]
+            return [f.result() for f in futures]
+    finally:
+        if saved is None:
+            os.environ.pop("JAX_PLATFORMS", None)
+        else:
+            os.environ["JAX_PLATFORMS"] = saved

@@ -1,4 +1,4 @@
-"""Convolution reverb: partitioned FFT convolution, TPU-native.
+"""Convolution reverb: partitioned FFT convolution on the accelerator.
 
 The reference's preprocessing reverb does one whole-file cuFFT convolution
 (reference: Jefferson/src/cudaPart.cu:81-196) at size
@@ -11,10 +11,10 @@ implement the intended behavior.)
 
 Two backends:
   * 'host' (offline default): one scipy float64 FFT — reverb is one-shot
-    preprocessing (as in the reference), and the deployed TPU stack takes
-    minutes to compile the big grouped convolution, so the host transform
-    is the right offline tradeoff.
-  * 'tpu': uniform pad_len-sized IR partitions convolved in the frequency
+    preprocessing (as in the reference), so the host transform is the
+    simple offline choice.
+  * 'tpu' (the accelerator backend; the value keeps its historical name):
+    uniform pad_len-sized IR partitions convolved in the frequency
     domain with the input's block spectra — the spectral accumulation
     ``y[m] = sum_j S[m-j] * H[j]`` as grouped 1-D convolutions with
     power-of-two size bucketing so compiles cache across lengths.  This is
@@ -68,8 +68,8 @@ def _spectral_conv_grouped(sr, si, hr, hi, j_rows: int):
             padding=[(j_rows - 1, j_rows - 1)],
             dimension_numbers=("NCH", "OIH", "NCH"),
             feature_group_count=k,
-            # fp32 accumulation on TPU (DEFAULT is bf16 — the repo precision
-            # rule every other MXU op in this path already follows)
+            # full fp32 (DEFAULT may run in TF32 on a GPU — the repo
+            # precision rule every other contraction follows)
             precision=jax.lax.Precision.HIGHEST,
         )
         return out[0].T          # (M+J-1, K)
@@ -80,8 +80,8 @@ def _spectral_conv_grouped(sr, si, hr, hi, j_rows: int):
 
 
 def _spectral_conv_blocks(sr, si, hr, hi):
-    """Bucketed wrapper: pads M and J to powers of two so the (expensive,
-    minutes-scale on the deployed TPU stack) grouped-conv compile is reused
+    """Bucketed wrapper: pads M and J to powers of two so the grouped-conv
+    compile is reused
     across signal/IR lengths, then trims to the true M+J-1."""
     m, k = sr.shape
     j = hr.shape[0]
@@ -120,9 +120,7 @@ def convolve_linear(
     """Full linear convolution (len = len(signal)+len(ir)-1).
 
     backend 'host' (default): one float64 scipy FFT on the host — reverb is
-    one-shot *preprocessing* (like the reference's cudaFFT before playout),
-    and the deployed TPU stack needs minutes to compile the large grouped
-    conv, so the host transform is the right offline default.
+    one-shot *preprocessing* (like the reference's cudaFFT before playout).
     backend 'tpu': the uniform partitioned frequency-domain convolution on
     the accelerator (bucketed compiles; also the streaming formulation).
     """

@@ -7,14 +7,14 @@ warns on clipping, enqueues the next block, and appends the block to the
 output WAV (reference: Jefferson/src/Audio.cu:7-58 ``initializePA``,
 94-163 ``callback_func``, 164-176 ``paCallback``).
 
-TPU-native split: the DSP lives in ``StreamingSpatializer.process_block``
+The split: the DSP lives in ``StreamingSpatializer.process_block``
 (the callback seam); this module supplies the device loop around it with
 two interchangeable backends:
 
 * ``sounddevice`` — live playout on hosts that have an audio device and the
   optional ``sounddevice`` package.  Degrades gracefully (clear error,
-  ``have_output_device()`` probe) when either is absent — TPU hosts
-  normally have neither.
+  ``have_output_device()`` probe) when either is absent — accelerator
+  servers normally have neither.
 * fake device — drives the identical callback from a host loop (optionally
   paced to the real-time block deadline), recording per-block compute time
   against the 128/44100 s = 2.9 ms budget.  This is both the CI test

@@ -14,7 +14,7 @@ The reference's quirky integer semantics are reproduced deliberately:
   * omegaA+omegaB do not generally sum to 1 for fractional increments
     because theta is truncated to whole degrees before the weight division.
 
-On TPU the reference's four separately-launched kernel chains (reference:
+Here the reference's four separately-launched kernel chains (reference:
 Jefferson/src/GPUSoundSource.cu:118-317) collapse into one gather of 4
 spectra + a per-block 4-weight blend; the case dispatch merely selects the
 effective weights, so there is no data-dependent branching on the hot path.

@@ -1,6 +1,6 @@
 """Profiling and observability.
 
-TPU equivalents of the reference's instrumentation (SURVEY.md section 5):
+Equivalents of the reference's instrumentation (SURVEY.md section 5):
 cudaProfilerStart/Stop brackets -> ``trace()`` (jax.profiler); the
 sum_ms/avg_ms/num_calls counters on SoundSource (reference:
 Jefferson/src/SoundSource.cuh:42-44) -> ``RTFMeter``; the GPU memory report

@@ -2,7 +2,7 @@
 
 The reference redraws the listener + source sphere at ~100 Hz *while audio
 plays* (reference: Jefferson/src/graphics.cu:352-453, glutTimerFunc 10 ms).
-The TPU build is headless, so the live equivalent is a client that polls a
+The rebuild is headless, so the live equivalent is a client that polls a
 running daemon's ``stream_status`` (jefferson_tpu.serve) and rewrites a
 scene SVG — plus a tiny self-refreshing HTML wrapper any browser can keep
 open next to the stream:

@@ -2,7 +2,7 @@
 
 The reference renders the listener, the movable source sphere and a
 (disabled) waveform ribbon in a GLUT window (reference:
-Jefferson/src/graphics.cu:352-453, Jefferson/src/vbo.cu).  The TPU build is
+Jefferson/src/graphics.cu:352-453, Jefferson/src/vbo.cu).  The rebuild is
 headless; the equivalents are file artifacts:
 
   * ``scene_svg``     — top-down scene: listener at the origin, trajectory

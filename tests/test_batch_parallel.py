@@ -1,6 +1,7 @@
 """Multi-source batching + mesh sharding tests (8 virtual CPU devices)."""
 
 import numpy as np
+import pytest
 
 import jax
 
@@ -74,48 +75,17 @@ def test_batch_renderer_rejects_2d_mesh(db):
         BatchRenderer(db, mesh=mesh2)
 
 
-def test_batch_default_chunk_keeps_fused_step(db):
-    """The BatchRenderer/CLI-scene default (chunk_blocks=None -> auto) must
-    keep full chunks on the fully-fused step kernel (tb % nb == 0) — chunk
-    sizes above 256 silently fall back to fused_apply, measured ~2x slower
-    on the hold scene — and lower hold-scene chunks toward ~8192-row steps
-    (measured 1.14-1.20x at s=64/128/256; scripts/bench_chunksize.py,
-    bit-identical outputs across chunkings)."""
-    from types import SimpleNamespace
+def test_batch_default_chunk_size(db):
+    """chunk_blocks=None takes the module default; an explicit size pins
+    every render, and a non-positive one is refused."""
+    import pytest
 
-    from jefferson_tpu.engine.batch import _auto_chunk
-    from jefferson_tpu.engine.renderer import pick_fused_tile
+    from jefferson_tpu.engine.batch import DEFAULT_CHUNK_BLOCKS
 
-    assert BatchRenderer(db).chunk_blocks is None  # auto
-
-    hold = lambda b: SimpleNamespace(xfade=np.zeros(b, bool))
-    mover = lambda b: SimpleNamespace(xfade=np.ones(b, bool))
-
-    # hold scenes: ~8192-row steps (never above the fused-step 256 ceiling)
-    for s, want in ((8, 256), (32, 256), (64, 128), (128, 64), (256, 32),
-                    (2048, 8)):
-        nb = _auto_chunk(s, 2048, [hold(2048)] * s)
-        assert nb == want, (s, nb, want)
-        tb = pick_fused_tile(s * nb, nb)
-        assert tb is not None and tb % nb == 0, (s, nb, tb)
-    # movers keep the 256 ceiling (the hold measurements don't transfer)
-    assert _auto_chunk(128, 2048, [mover(2048)] * 128) == 256
-    # a block-0-only crossfade (initial reposition) still counts as a hold
-    first = SimpleNamespace(xfade=np.r_[True, np.zeros(2047, bool)])
-    assert _auto_chunk(128, 2048, [first] * 128) == 64
-    # sparse cadence (<= 1/16 of rows crossfade) lowers too (measured
-    # 1.074x at the reference's 172-block cadence); denser does not
-    xf = np.zeros(2048, bool); xf[::172] = True
-    assert _auto_chunk(128, 2048, [SimpleNamespace(xfade=xf)] * 128) == 64
-    xf8 = np.zeros(2048, bool); xf8[::8] = True
-    assert _auto_chunk(128, 2048, [SimpleNamespace(xfade=xf8)] * 128) == 256
-    # XLA-only renders (fused off/unsupported) keep the pre-retune 512
-    # default: both auto numbers are fused-step measurements, and smaller
-    # chunks only multiply host dispatches on that path
-    assert _auto_chunk(128, 2048, [hold(2048)] * 128, fused=False) == 512
-    assert _auto_chunk(128, 2048, [mover(2048)] * 128, fused=False) == 512
-    # an explicit chunk size pins the render
+    assert BatchRenderer(db).chunk_blocks == DEFAULT_CHUNK_BLOCKS == 512
     assert BatchRenderer(db, chunk_blocks=128).chunk_blocks == 128
+    with pytest.raises(ValueError, match="positive"):
+        BatchRenderer(db, chunk_blocks=0)
 
 
 def test_mesh_utilities():
@@ -276,8 +246,7 @@ def test_renderer_block_mesh_production_path(db, config, castanets):
     """Round-4 productization: Renderer(mesh=...) shards one render's
     time-block axis over the mesh (the CLI's `--devices N` single-source
     path) and matches the unsharded render; dedup and mover dispatches both
-    covered.  Fused kernels are single-device-only (a Pallas custom call is
-    not GSPMD-partitionable), so the mesh path runs the XLA chunk."""
+    covered."""
     from jefferson_tpu.engine.renderer import Renderer
     from jefferson_tpu.trajectory.trajectory import AzimuthSweep
 
@@ -288,7 +257,7 @@ def test_renderer_block_mesh_production_path(db, config, castanets):
                      blocks_per_step=16, num_steps=2),       # holds: dedup path
     ):
         pos = traj.sample(48, config)
-        want = Renderer(db, config, chunk_blocks=16, fused=False).render(
+        want = Renderer(db, config, chunk_blocks=16).render(
             castanets, pos
         )
         got = Renderer(db, config, chunk_blocks=16, mesh=mesh).render(
@@ -365,73 +334,31 @@ def _static_batch(config, castanets, s=4, blocks=16):
     return signals, np.stack(trajs)
 
 
-def test_batch_dedup_fused_matches_xla(db, config, castanets):
-    """The dedup+fused batch composition (fused forced on; interpret-mode
-    Pallas on CPU) matches the XLA dedup path within kernel ulps."""
+def test_batch_dedup_matches_direct(db, config, castanets):
+    """The batch dedup program (position-holding sources) matches the
+    direct program, and the dedup program is the one that ran."""
     signals, positions = _static_batch(config, castanets)
-    fused = BatchRenderer(db, chunk_blocks=16, fused=True)
-    plain = BatchRenderer(db, chunk_blocks=16, fused=False)
-    got = fused.render(signals, positions)
-    want = plain.render(signals, positions)
-    rep = precision_check(got, want, eps=5e-7)
+    dedup = BatchRenderer(db, chunk_blocks=16)
+    got = dedup.render(signals, positions)
+    want = BatchRenderer(db, chunk_blocks=16, dedup=False).render(signals, positions)
+    rep = precision_check(got, want, eps=1e-7)
     assert rep.ok, str(rep)
-    # the composition must actually have been used (dedup active + fused on)
-    assert any(k[1] is not None and k[2] is not None for k in fused._jitted), (
-        "dedup+fused batch fn was never compiled; dispatch regressed"
-    )
+    assert all(k[1] is not None for k in dedup._jitted), list(dedup._jitted)
 
 
-def test_batch_dedup_fused_sharded(db, config, castanets):
-    """dedup+fused composed with shard_map over the 8-device mesh."""
-    from jefferson_tpu.parallel.mesh import make_mesh
-
+def test_batch_dedup_sharded(db, config, castanets):
+    """The dedup program over the 8-device source mesh == one device."""
     signals, positions = _static_batch(config, castanets, s=8)
     mesh = make_mesh(8)
-    got = BatchRenderer(db, chunk_blocks=16, mesh=mesh, fused=True).render(
-        signals, positions
-    )
-    want = BatchRenderer(db, chunk_blocks=16, fused=False).render(signals, positions)
-    rep = precision_check(got, want, eps=5e-7)
-    assert rep.ok, str(rep)
-
-
-def test_batch_fused_fallback_and_propagation(db, config, castanets, monkeypatch, capsys):
-    """Runtime-stack failures in the fused batch path degrade gracefully to
-    the XLA path (with the real message surfaced); genuine bugs propagate."""
-    import pytest
-
-    import jefferson_tpu.engine.batch as batch_mod
-
-    signals, positions = _static_batch(config, castanets)
-    want = BatchRenderer(db, chunk_blocks=16, fused=False).render(signals, positions)
-
-    def boom_runtime(*a, **k):
-        def fn(*args, **kw):
-            raise RuntimeError("remote Mosaic compile HTTP 500")
-        return fn
-
-    br = BatchRenderer(db, chunk_blocks=16, fused=True)
-    monkeypatch.setattr(batch_mod, "batched_chunk_fn_dedup_fused", boom_runtime)
-    got = br.render(signals, positions)
-    err = capsys.readouterr().err
-    assert "remote Mosaic compile HTTP 500" in err  # real message surfaced
+    got = BatchRenderer(db, chunk_blocks=16, mesh=mesh).render(signals, positions)
+    want = BatchRenderer(db, chunk_blocks=16).render(signals, positions)
     rep = precision_check(got, want, eps=1e-7)
     assert rep.ok, str(rep)
 
-    def boom_bug(*a, **k):
-        def fn(*args, **kw):
-            raise ValueError("genuine shape bug")
-        return fn
-
-    br2 = BatchRenderer(db, chunk_blocks=16, fused=True)
-    monkeypatch.setattr(batch_mod, "batched_chunk_fn_dedup_fused", boom_bug)
-    with pytest.raises(ValueError, match="genuine shape bug"):
-        br2.render(signals, positions)
-
 
 def _wide_scene(config, castanets, s=8, blocks=16, seed=11):
-    """Many sources spread over the full sphere, all moving: the
-    cross-source unique-filter set exceeds one compact table's VMEM gate."""
+    """Many sources spread over the full sphere, all moving: a wide
+    cross-source unique-filter set, so dedup cannot pay."""
     rng = np.random.default_rng(seed)
     signals = np.stack([np.roll(castanets, 300 * i)[:4000] for i in range(s)])
     trajs = []
@@ -445,110 +372,41 @@ def _wide_scene(config, castanets, s=8, blocks=16, seed=11):
     return signals, np.stack(trajs)
 
 
-def test_batch_grouped_onehot_wide_scene(db, config, castanets, monkeypatch):
-    """A scene whose cross-source unique set exceeds MAX_ONEHOT_U uses
-    per-source-group tables (one dispatch) and stays correct."""
-    import jefferson_tpu.pallas.fused_step as fs
-    from jefferson_tpu.engine.batch import _plan_source_groups
-    from jefferson_tpu.engine.plan import make_plan
+def _gate_each_source(db, config, signals, positions, got, eps=2e-7):
+    from jefferson_tpu.oracle.reference import render_oracle
 
-    import jefferson_tpu.engine.batch as batch_mod
+    for i in range(signals.shape[0]):
+        want = render_oracle(signals[i], db, [tuple(p) for p in positions[i]], config)
+        rep = precision_check(got[i], want, eps=eps)
+        assert rep.ok, f"source {i}: {rep}"
 
-    # shrink the gates so the small CI scene counts as "wide" AND the
-    # shrunken CI tiles still elect grouped (the production GROUPED_MIN_TB
-    # policy is covered by test_grouped_tile_policy_prefers_gather_...)
-    monkeypatch.setattr(fs, "MAX_ONEHOT_U", 32)
-    monkeypatch.setattr(batch_mod, "GROUPED_MIN_TB", 8)
+
+def test_batch_wide_scene(db, config, castanets):
+    """A scene whose sources span the whole sphere takes the direct batch
+    program and holds the oracle gate per source."""
     signals, positions = _wide_scene(config, castanets)
-    s, nb = positions.shape[0], positions.shape[1]
-    plans = [make_plan(positions[i], config) for i in range(s)]
-    idx_old = np.stack([p.idx_old for p in plans])
-    idx_last = np.stack([p.idx_new[-1] for p in plans])
-    all_u = len(np.unique(np.concatenate([idx_old.reshape(-1), idx_last.reshape(-1)])))
-    assert all_u > 32, "fixture must exceed the shrunken gate"
-    g, up = _plan_source_groups(idx_old, idx_last, s, tb_sources=1)
-    assert g is not None and g < s and up <= 32
-
-    fused = BatchRenderer(db, chunk_blocks=16, fused=True, dedup=False)
-    got = fused.render(signals, positions)
-    assert any(
-        k[3] and k[4] is not None for k in fused._jitted
-    ), "grouped one-hot batch fn was never compiled"
-    want = BatchRenderer(db, chunk_blocks=16, fused=False).render(signals, positions)
-    rep = precision_check(got, want, eps=5e-7)
-    assert rep.ok, str(rep)
+    br = BatchRenderer(db, chunk_blocks=16)
+    got = br.render(signals, positions)
+    assert all(k[1] is None for k in br._jitted), list(br._jitted)
+    _gate_each_source(db, config, signals, positions, got)
 
 
-def test_batch_grouped_onehot_sharded(db, config, castanets, monkeypatch):
-    """Grouped tables shard by source group across the mesh."""
-    import jefferson_tpu.pallas.fused_step as fs
-    from jefferson_tpu.parallel.mesh import make_mesh
-
-    import jefferson_tpu.engine.batch as batch_mod
-
-    monkeypatch.setattr(fs, "MAX_ONEHOT_U", 32)
-    monkeypatch.setattr(batch_mod, "GROUPED_MIN_TB", 8)
+def test_batch_wide_scene_sharded(db, config, castanets):
+    """The wide scene sharded by source over the mesh == one device."""
     signals, positions = _wide_scene(config, castanets, s=16)
     mesh = make_mesh(8)
-    fused = BatchRenderer(db, chunk_blocks=16, mesh=mesh, fused=True, dedup=False)
-    got = fused.render(signals, positions)
-    want = BatchRenderer(db, chunk_blocks=16, fused=False).render(signals, positions)
-    rep = precision_check(got, want, eps=5e-7)
+    got = BatchRenderer(db, chunk_blocks=16, mesh=mesh).render(signals, positions)
+    want = BatchRenderer(db, chunk_blocks=16).render(signals, positions)
+    rep = precision_check(got, want, eps=1e-7)
     assert rep.ok, str(rep)
 
 
-def test_batch_grouped_single_source_groups_nonpow2_chunk(db, config, castanets, monkeypatch):
-    """Review-confirmed crash (round 3): groups of 1 source with a chunk
-    size whose tile candidates include sub-source tiles (nb=24 -> tb=8)
-    must not violate the batched kernel's tb % nb == 0 contract — the
-    dispatch re-picks a whole-source tile or falls back, never crashes."""
-    import jefferson_tpu.pallas.fused_step as fs
-
-    import jefferson_tpu.engine.batch as batch_mod
-
-    monkeypatch.setattr(fs, "MAX_ONEHOT_U", 16)  # force groups of 1 source
-    monkeypatch.setattr(batch_mod, "GROUPED_MIN_TB", 8)
+def test_batch_nonpow2_chunk(db, config, castanets):
+    """A chunk size that is not a power of two (24 blocks) renders a wide
+    scene on the oracle."""
     signals, positions = _wide_scene(config, castanets, s=4, blocks=24)
-    fused = BatchRenderer(db, chunk_blocks=24, fused=True, dedup=False)
-    got = fused.render(signals, positions)  # used to raise AssertionError
-    want = BatchRenderer(db, chunk_blocks=24, fused=False).render(signals, positions)
-    rep = precision_check(got, want, eps=5e-7)
-    assert rep.ok, str(rep)
-
-
-def test_batch_strike_cap_is_per_geometry(db, config, castanets, monkeypatch):
-    """A deterministically-failing program geometry accumulates strikes
-    independently: the one-hot program's failures must not be reset by the
-    (different) gather program's successes in the same renders.
-
-    (Partial-final-chunk geometries no longer exist to test — the batch
-    renderer pads the last chunk to the fixed size, see
-    test_partial_final_chunk_compiles_one_program.)"""
-    import jefferson_tpu.engine.batch as batch_mod
-    from jefferson_tpu.engine.renderer import _MAX_FUSED_STRIKES
-
-    signals, positions = _wide_scene(config, castanets, s=4, blocks=32)
-    real_factory = batch_mod.batched_chunk_fn_fused
-    calls = {"bad": 0}
-
-    def factory(config_, nb, tb, onehot=False, group_tiles=None, **kw):
-        fn = real_factory(config_, nb, tb, onehot=onehot, group_tiles=group_tiles, **kw)
-        if onehot:  # the one-hot program fails deterministically
-            def bad(*a, **k):
-                calls["bad"] += 1
-                raise RuntimeError("deterministic Mosaic failure (onehot)")
-            return bad
-        return fn
-
-    monkeypatch.setattr(batch_mod, "batched_chunk_fn_fused", factory)
-    br = BatchRenderer(db, chunk_blocks=16, fused=True, dedup=False)
-    for _ in range(6):
-        out = br.render(signals, positions)
-        assert np.isfinite(out).all()
-    # the one-hot geometry gets _MAX_FUSED_STRIKES attempts, then the
-    # dispatcher downgrades to the gather program (which succeeds) and the
-    # struck key is never retried — gather successes must NOT reset it
-    assert calls["bad"] == _MAX_FUSED_STRIKES, calls
+    got = BatchRenderer(db, chunk_blocks=24).render(signals, positions)
+    _gate_each_source(db, config, signals, positions, got)
 
 
 def test_partial_final_chunk_compiles_one_program(db, config, castanets):
@@ -557,7 +415,7 @@ def test_partial_final_chunk_compiles_one_program(db, config, castanets):
     program each (the daemon compile/RSS leak class), and the padded
     render must be bit-identical to the unpadded reference."""
     signals, positions = _wide_scene(config, castanets, s=4, blocks=24)
-    br = BatchRenderer(db, chunk_blocks=16, fused=True, dedup=False)
+    br = BatchRenderer(db, chunk_blocks=16, dedup=False)
     out = br.render(signals, positions)  # 24 = 16 + 8 -> padded to 32
     assert out.shape == (4, 24 * config.frames_per_buffer, 2)
     # only full-size (nb=16) programs were compiled
@@ -568,68 +426,30 @@ def test_partial_final_chunk_compiles_one_program(db, config, castanets):
     pos_pad = np.concatenate(
         [positions, np.repeat(positions[:, -1:], 8, axis=1)], axis=1
     )
-    ref = BatchRenderer(db, chunk_blocks=16, fused=True, dedup=False).render(
+    ref = BatchRenderer(db, chunk_blocks=16, dedup=False).render(
         signals, pos_pad
     )[:, : 24 * config.frames_per_buffer]
     np.testing.assert_array_equal(out, ref)
 
 
-def test_grouped_tile_policy_prefers_gather_at_shrunken_tiles(db, config):
-    """Round-4 dispatch policy (GROUPED_MIN_TB): a scene whose source
-    groups force group-aligned tiles below 256 rows routes to the gather
-    blend (measured parity-at-best for shrunken-tile grouped one-hot,
-    PERF.md), while the grouped plan itself remains viable."""
-    from jefferson_tpu.bench.sweep import _batch_dispatches
-    from jefferson_tpu.engine.batch import _plan_batch_onehot
-    from jefferson_tpu.engine.plan import make_plan
-
-    s, b = 8, 32
-    rng = np.random.default_rng(0)
-    i = np.arange(b)
-    pos = np.empty((s, b, 3))
-    for src in range(s):
-        pos[src, :, 0] = (src * 45 + 25.0 * i) % 360.0  # wide fast movers
-        pos[src, :, 1] = -35.0 + src * 15.0
-        pos[src, :, 2] = 1.0
-    plans = [make_plan(pos[k], config) for k in range(s)]
-    plan = _plan_batch_onehot(plans, b, 16, s)
-    assert plan is not None and plan[0] == "grouped"  # grouping IS viable
-    assert plan[1] * 16 < 256  # ...but group tiles would shrink below 256
-
-    sigs = (rng.standard_normal((s, b * 128)) * 0.2).astype(np.float32)
-    br = BatchRenderer(db, config, chunk_blocks=16, fused=True, dedup=False)
-    got = br.render(sigs, pos)
-    assert _batch_dispatches(br) == {"gather_fused"}, _batch_dispatches(br)
-    assert not br._fused_strikes
-    want = BatchRenderer(db, config, chunk_blocks=16, fused=False).render(sigs, pos)
-    rep = precision_check(got, want, eps=5e-7)
-    assert rep.ok, str(rep)
-
-
-def test_explicit_large_chunk_routes_to_gather(db, config, castanets):
-    """chunk_blocks > 256 gives a tile SMALLER than the chunk (tb | nb
-    fails the one-hot step kernel's whole-source-tiles contract): the
-    shared one-hot election must route to the gather blend instead of
-    crashing the render with the kernel's trace-time assert (review
-    finding; the grouped branch already guarded this)."""
+def test_explicit_large_chunk(db, config, castanets):
+    """An explicit chunk larger than the render (512 over 512 blocks of
+    two alternating holds) renders finite, oracle-gated output."""
     s, b = 2, 512
-    rng = np.random.default_rng(4)
     pos = np.empty((s, b, 3))
     for k in range(s):
-        # few unique filters -> the plan ELECTS shared one-hot
         pos[k, :, 0] = np.where((np.arange(b) // 64) % 2 == 0, 30.0 + 5 * k, 35.0 + 5 * k)
         pos[k, :, 1] = 0.0
         pos[k, :, 2] = 1.0
     sigs = np.stack([castanets[: b * 128], np.roll(castanets, 500)[: b * 128]])
-    br = BatchRenderer(db, config, chunk_blocks=512, fused=True, dedup=False)
-    out = br.render(sigs, pos)
+    out = BatchRenderer(db, config, chunk_blocks=512).render(sigs, pos)
     assert out.shape == (s, b * 128, 2) and np.isfinite(out).all()
+    _gate_each_source(db, config, sigs, pos, out)
 
 
-def test_sharded_wide_movers_gather_form(db, config, castanets):
-    """Wide full-sphere movers whose per-shard tiles shrink below
-    GROUPED_MIN_TB must route to the GATHER-fused batched form under the
-    mesh (the non-onehot shard_map operand layout) and match unsharded."""
+def test_sharded_wide_movers(db, config, castanets):
+    """Random full-sphere movers sharded over the 8-device mesh == one
+    device."""
     rng = np.random.default_rng(11)
     s, nb = 8, 16
     signals = np.stack(
@@ -641,13 +461,9 @@ def test_sharded_wide_movers_gather_form(db, config, castanets):
         for _ in range(s)
     ]).astype(np.float32)
     mesh = make_mesh(8)
-    br = BatchRenderer(db, chunk_blocks=nb, mesh=mesh, fused=True)
-    got = br.render(signals, positions)
-    gather_keys = [k for k in br._jitted
-                   if k[1] is None and k[2] is not None and not k[3]]
-    assert gather_keys, f"expected the gather-fused form, programs: {list(br._jitted)}"
+    got = BatchRenderer(db, chunk_blocks=nb, mesh=mesh).render(signals, positions)
     want = BatchRenderer(db, chunk_blocks=nb).render(signals, positions)
-    rep = precision_check(got, want, eps=5e-7)
+    rep = precision_check(got, want, eps=1e-7)
     assert rep.ok, str(rep)
 
 
@@ -776,61 +592,81 @@ def test_renderer_short_render_keeps_block_mesh_chunk_even(db, config, castanets
     assert rep.ok, str(rep)
 
 
-def test_batched_onehot_compact_distance_matches_xla(db, config):
-    """The bench.py headline composition at CI scale: the batched one-hot
-    fused form with the COMPACT distance operands ((8,)-triple arrays + a
-    per-block selector, n_dist) matches the XLA batch chain."""
+def test_bench_step_matches_oracle(db, config):
+    """bench.py's step at CI scale: the batched chunk function on orbiting
+    sources, source 0 against the oracle."""
     import jax.numpy as jnp
 
-    from jefferson_tpu.engine.batch import batched_chunk_fn, batched_chunk_fn_fused
-    from jefferson_tpu.engine.plan import compact_filter_ids, make_plan
-    from jefferson_tpu.engine.renderer import dedup_distance, pick_fused_tile
+    from jefferson_tpu.engine.batch import batched_chunk_fn
+    from jefferson_tpu.engine.plan import make_plan
+    from jefferson_tpu.oracle.reference import render_oracle
 
     s, nb = 4, 16
     rng = np.random.default_rng(7)
-    plans = [
-        make_plan(CircularOrbit(period_s=0.4 + 0.01 * i, ele=5, r=1.0)
-                  .sample(nb, config), config)
-        for i in range(s)
-    ]
-    feds = jnp.asarray(
-        (rng.standard_normal((s, nb * config.frames_per_buffer)) * 0.2)
-        .astype(np.float32)
-    )
-    hists = jnp.zeros((s, config.history_len), jnp.float32)
+    pos = [CircularOrbit(period_s=0.4 + 0.01 * i, ele=5, r=1.0).sample(nb, config)
+           for i in range(s)]
+    plans = [make_plan(p, config) for p in pos]
+    feds = (rng.standard_normal((s, nb * config.frames_per_buffer)) * 0.2
+            ).astype(np.float32)
     spectra = (
         jnp.asarray(np.real(db.spectra).astype(np.float32)),
         jnp.asarray(np.imag(db.spectra).astype(np.float32)),
     )
     stack = lambda attr: jnp.asarray(np.stack([getattr(p, attr) for p in plans]))
-    idx_old = np.stack([p.idx_old for p in plans])
-    idx_last = np.stack([p.idx_new[-1] for p in plans])
-    uniq_ids, ridx, ridx_last, u_pad = compact_filter_ids(idx_old, idx_last)
-    dist = dedup_distance(
-        np.concatenate([p.u_hi for p in plans]),
-        np.concatenate([p.u_lo for p in plans]),
-        np.concatenate([p.inv_frac for p in plans]),
-    )
-    assert dist is not None, "constant-radius orbits must dedup to few triples"
-    nd = dist[4]
-    tb = pick_fused_tile(s * nb, nb)
-    fused = jax.jit(batched_chunk_fn_fused(
-        config, num_blocks=nb, tb=tb, onehot=True, n_dist=nd,
-    ))
-    got, h_f = fused(
-        spectra, hists, feds,
-        jnp.asarray(uniq_ids), jnp.asarray(ridx), stack("w_old"),
-        jnp.asarray(ridx_last), jnp.asarray(np.stack([p.w_new[-1] for p in plans])),
-        stack("xfade"),
-        jnp.asarray(dist[0]), jnp.asarray(dist[1]), jnp.asarray(dist[2]),
-        jnp.asarray(dist[3].reshape(s, nb)),
-    )
-    xla = jax.jit(batched_chunk_fn(config, num_blocks=nb, with_xfade=True))
-    want, h_x = xla(
-        spectra, hists, feds,
+    step = jax.jit(batched_chunk_fn(config, num_blocks=nb, with_xfade=True))
+    out, hists = step(
+        spectra, jnp.zeros((s, config.history_len), jnp.float32), jnp.asarray(feds),
         stack("idx_new"), stack("w_new"), stack("idx_old"), stack("w_old"),
         stack("xfade"), stack("u_hi"), stack("u_lo"), stack("inv_frac"),
     )
-    rep = precision_check(np.asarray(got), np.asarray(want), eps=5e-7)
+    got = np.asarray(out[0]).reshape(-1, 2)
+    want = render_oracle(feds[0], db, [tuple(p) for p in pos[0]], config)
+    rep = precision_check(got, want, eps=2e-7)
     assert rep.ok, str(rep)
-    np.testing.assert_array_equal(np.asarray(h_f), np.asarray(h_x))
+    np.testing.assert_array_equal(
+        np.asarray(hists), feds[:, -config.history_len:])
+
+
+def _sharded_program_hlo(br, signals, positions) -> str:
+    """Optimized HLO of the first chunk program a render dispatched."""
+    captured = []
+    get_fn = br._get_fn
+
+    def spy(*a, **k):
+        fn = get_fn(*a, **k)
+
+        def call(*args):
+            captured.append((fn, args))
+            return fn(*args)
+
+        return call
+
+    br._get_fn = spy
+    br.render(signals, positions)
+    fn, args = captured[0]
+    return fn.lower(*args).compile().as_text()
+
+
+def _collectives(hlo: str) -> dict:
+    import re
+
+    counts = {}
+    for op in re.findall(r"\b(all-reduce|all-gather|reduce-scatter|collective-permute"
+                         r"|all-to-all)(?:-start)?\(", hlo):
+        counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
+@pytest.mark.parametrize("hold", [True, False], ids=["dedup", "direct"])
+@pytest.mark.parametrize("mix", [True, False], ids=["mixdown", "per_source"])
+def test_source_mesh_collectives(db, config, castanets, mix, hold):
+    """The source-sharded scene program: the mixdown is exactly one
+    all-reduce, and the per-source path moves nothing between devices."""
+    s = 8
+    if hold:
+        signals, positions = _static_batch(config, castanets, s=s)
+    else:
+        signals, positions = _wide_scene(config, castanets, s=s)
+    br = BatchRenderer(db, chunk_blocks=16, mesh=make_mesh(4), mix=mix)
+    counts = _collectives(_sharded_program_hlo(br, signals, positions))
+    assert counts == ({"all-reduce": 1} if mix else {}), counts

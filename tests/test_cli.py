@@ -274,7 +274,7 @@ def test_scene_rejects_unsupported_flags(tmp_path, castanets, config):
         {"input": str(src), "trajectory": "static:azi=0"}]}))
     base = ["--scene", str(scene), "-o", str(tmp_path / "o.wav"), "--quiet",
             "--blocks", "4"]
-    for extra in (["-r", str(src)], ["--no-fused"], ["--viz"],
+    for extra in (["-r", str(src)], ["--viz"],
                   ["-t", "3"], ["-i", str(src)], ["--initial-old", "none"]):
         with pytest.raises(SystemExit, match="scene does not support"):
             _run(base + extra)
@@ -558,3 +558,14 @@ def test_selftest_full_runs_reference_workload(tmp_path, castanets, db,
     # one shared renderer across the sweep and the mover gate
     assert seen["sweep_kw"]["renderer"] is seen["mover_kw"]["renderer"]
     assert seen["sweep_kw"]["renderer"] is not None
+
+
+def test_fft_backend_render_matches_oracle_render(tmp_path, wav_in):
+    """--backend fft (the reference's FFT formulation, cuFFT on the GPU)
+    holds the 2e-7 WAV gate against the CLI's own -t 3 oracle render."""
+    common = ["-i", wav_in, "--blocks", 40, "--chunk-blocks", 16,
+              "--trajectory", "orbit:period=1,r=1", "--float", "--quiet"]
+    eng, ora = tmp_path / "fft.wav", tmp_path / "oracle.wav"
+    assert _run(common + ["-o", eng, "--backend", "fft"]) == 0
+    assert _run(common + ["-o", ora, "-t", 3]) == 0
+    assert check_main([str(eng), str(ora), "--eps", "2e-7"]) == 0

@@ -109,7 +109,7 @@ def test_quit_requires_explicit_esc(db, config):
 
 
 def test_interactive_playout_crossfades_and_deadline(db, config, castanets):
-    """The VERDICT round-2 acceptance test: inject position commands between
+    """The live-control acceptance test: inject position commands between
     blocks of a fake-device playout; the crossfade must fire and the deadline
     stats stay green."""
     control = SourceControl()

@@ -94,56 +94,18 @@ def test_dedup_partial_final_chunk(db, config, castanets):
     )
 
 
-def test_dedup_distance_edges():
-    """Empty input -> None (no triples to dedup); a cap above the kernel's
-    hardcoded 8 operand rows is an assertion, not a silent misshape; over-cap
-    workloads return None (per-row ramps stay)."""
-    import pytest
-
-    from jefferson_tpu.engine.renderer import dedup_distance
-
-    e = np.zeros(0, np.float32)
-    assert dedup_distance(e, e, e) is None
-
-    hi = np.arange(16, dtype=np.float32)
-    assert dedup_distance(hi, hi, hi) is None  # 16 unique > cap
-
-    with pytest.raises(AssertionError, match="exceeds the kernel's 8 rows"):
-        dedup_distance(hi, hi, hi, cap=16)
-
-
-def test_pick_fused_tile_degenerate_inputs():
-    """Non-positive batch/segment and indivisible large segments yield None
-    instead of a bogus tile."""
-    from jefferson_tpu.engine.renderer import pick_fused_tile
-
-    assert pick_fused_tile(0, 8) is None
-    assert pick_fused_tile(64, 0) is None
-    assert pick_fused_tile(-8, 8) is None
-    # seg >= max_tb but not divisible by any sublane-aligned tile
-    assert pick_fused_tile(520, 260) is None
-
-
-def test_batch_dedup_fused_apply_arm(db, config, castanets):
-    """chunk_blocks > 256 gives tb < nb, routing the batch dedup+fused form
-    through the fused_apply (sliding-DFT outside, apply kernel inside) arm
-    instead of the fused step — exact vs the XLA dedup path."""
-    import numpy as np
-
+def test_batch_dedup_large_chunk(db, config, castanets):
+    """A 512-block chunk of a two-source hold scene takes the batch dedup
+    program and is bit-exact against the direct program."""
     from jefferson_tpu.engine.batch import BatchRenderer
-    from jefferson_tpu.testing import precision_check
 
     s, blocks = 2, 512
     signals = np.stack([np.roll(castanets, 700 * i)[:20000] for i in range(s)])
     pos = np.zeros((s, blocks, 3))
     pos[:, :, 2] = 1.0
     pos[0, :, 0], pos[1, :, 0] = 40.0, 200.0  # hold scene: dedup applies
-    on = BatchRenderer(db, config, chunk_blocks=512, fused=True, dedup=True)
+    on = BatchRenderer(db, config, chunk_blocks=512, dedup=True)
     got = on.render(signals, pos)
-    # dispatch pin: one dedup+fused program with tb < nb (the apply arm)
-    keys = [k for k in on._jitted if k[1] is not None and k[2] is not None]
-    assert keys and all(k[2] < k[0] for k in keys), on._jitted.keys()
-    want = BatchRenderer(db, config, chunk_blocks=512, fused=False,
-                         dedup=True).render(signals, pos)
-    rep = precision_check(got, want, eps=5e-7)
-    assert rep.ok, str(rep)
+    assert on._jitted and all(k[1] is not None for k in on._jitted), list(on._jitted)
+    want = BatchRenderer(db, config, chunk_blocks=512, dedup=False).render(signals, pos)
+    np.testing.assert_array_equal(got, want)

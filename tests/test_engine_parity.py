@@ -1,4 +1,4 @@
-"""TPU-engine vs NumPy-oracle parity: the framework's core gate.
+"""Engine vs NumPy-oracle parity: the framework's core gate.
 
 Mirrors the reference's four-tier strategy (SURVEY.md section 4): stage-level
 checks live in test_stages.py; this file covers end-to-end block renders for
@@ -135,7 +135,7 @@ def test_sub_block_playhead_parity(renderer, db, config):
 
 
 def test_matmul_backend_matches_fft(db, config, castanets):
-    """The MXU DFT-matmul backend is numerically interchangeable."""
+    """The DFT-matmul backend is numerically interchangeable."""
     pos = CircularOrbit(period_s=1.5).sample(40, config)
     a = Renderer(db, chunk_blocks=64, backend="fft").render(castanets, pos)
     b = Renderer(db, chunk_blocks=64, backend="matmul").render(castanets, pos)
@@ -196,39 +196,16 @@ def test_empty_signal_rejected(renderer, config):
         renderer.render(np.zeros(0, np.float32), StaticPosition().sample(4, config))
 
 
-def test_compact_distance_bit_identical(db, config, castanets):
-    """Round-4 roofline attack #2: few-unique-triple renders (constant
-    radius, modulo the reference's ulp wobble from the |coordinates| round
-    trip) compute one distance ramp per unique triple and select per row —
-    the engine output must be BIT-IDENTICAL to the per-row form, and
-    varying-radius renders must fall back to it."""
-    import jefferson_tpu.engine.renderer as rmod
-    from jefferson_tpu.engine.plan import make_plan
-    from jefferson_tpu.engine.renderer import Renderer, dedup_distance
-    from jefferson_tpu.trajectory.trajectory import CircularOrbit, LinearPath
-
-    pos = CircularOrbit(period_s=0.3, ele=5, r=1.0).sample(64, config)
-    plan = make_plan(pos, config)
-    d = dedup_distance(plan.u_hi, plan.u_lo, plan.inv_frac)
-    assert d is not None and 1 <= d[4] <= 4  # constant r -> few uniques
-    np.testing.assert_array_equal(  # selector reproduces the triples
-        d[0][d[3]], plan.u_hi
-    )
-
-    got = Renderer(db, config, chunk_blocks=32, fused=True).render(castanets, pos)
-    orig = rmod.dedup_distance
-    rmod.dedup_distance = lambda *a, **k: None  # force the per-row programs
-    try:
-        want = Renderer(db, config, chunk_blocks=32, fused=True).render(castanets, pos)
-    finally:
-        rmod.dedup_distance = orig
-    assert np.array_equal(got, want), "compact distance changed bits"
-
-    # varying radius exceeds the unique cap -> per-row path
-    posv = LinearPath((0.2, 0.0, -0.4), (1.5, 0.3, 1.2),
-                      64 * config.block_duration).sample(64, config)
-    planv = make_plan(posv, config)
-    assert dedup_distance(planv.u_hi, planv.u_lo, planv.inv_frac) is None
+@pytest.mark.parametrize("ptype", [ProcessType.TPU_FD_COMPLEX, ProcessType.TPU_FD_BASIC])
+def test_static_source_parity_fft_backend(db, config, castanets, ptype):
+    """The complex64 fft backend (cuFFT on the GPU) holds the reference's
+    2e-7 gate for a static source on both FD paths."""
+    pos = StaticPosition(azi=35, ele=10, r=0.8).sample(40, config)
+    got = Renderer(db, chunk_blocks=16, backend="fft").render(castanets, pos, ptype)
+    want = render_oracle(castanets, db, [tuple(p) for p in pos], config,
+                         ProcessType(ptype.value + 3))
+    rep = precision_check(got, want, eps=2e-7)
+    assert rep.ok, str(rep)
 
 
 def test_fd_basic_fft_backend_parity(db, config, castanets):
@@ -246,11 +223,10 @@ def test_fd_basic_fft_backend_parity(db, config, castanets):
     assert rep.ok, rep
 
 
-def test_unaligned_geometry_fused_parity():
-    """Non-power-of-two block sizes make history_len % fpb != 0, which the
-    fused-step kernels can't tile (sub-block rows would straddle tiles) —
-    the dispatch must route to the XLA-forward + fused-apply arm
-    (_apply_maybe_full_fuse's unaligned branch) and stay inside the oracle
+def test_unaligned_geometry_parity():
+    """Non-power-of-two block sizes make history_len % fpb != 0, so the
+    forward DFT takes explicit windows instead of the sliding sub-block
+    form and dedup is off — the direct program must stay inside the oracle
     gate."""
     import jefferson_tpu as jt
 
@@ -262,36 +238,29 @@ def test_unaligned_geometry_fused_parity():
     sig = (np.random.default_rng(0).standard_normal(nb * 100) * 0.2).astype(
         np.float32
     )
-    r = Renderer(db, cfg, chunk_blocks=nb, fused=True)
+    r = Renderer(db, cfg, chunk_blocks=nb)
     got = r.render(sig, pos)
     want = render_oracle(sig, db, [tuple(p) for p in pos], cfg)
     rep = precision_check(got, want, eps=5e-7)
     assert rep.ok, rep
-    # pins the arm: the one-hot/dedup forms need the aligned geometry, so
-    # the render must have gone through the gather-fused programs
-    assert r._fd_fused and not r._fd_onehot and not r._fd_dedup_fused
+    assert r._fd_complex and not r._fd_dedup
 
 
 def test_program_count_discipline_mixed_render(db, config, castanets):
-    """The one-compiled-program-per-render rule (CLAUDE.md): a long mixed
-    hold/move render compiles at most TWO variants per path (crossfading +
-    crossfade-free), across every program cache — remote compiles cost
-    20 s-5 min each, so program count is a production invariant, not a
-    style preference."""
+    """The one-compiled-program-per-render rule: a long mixed hold/move
+    render compiles at most TWO variants per path (crossfading +
+    crossfade-free), across every program cache."""
     from jefferson_tpu.engine.renderer import Renderer
     from jefferson_tpu.trajectory.trajectory import AzimuthSweep
 
     traj = AzimuthSweep(start_azi=0, ele=0, r=0.5, step_deg=5,
                         blocks_per_step=24, num_steps=9)
     pos = traj.sample(traj.total_blocks, config)  # 240 blocks, periodic moves
-    r = Renderer(db, config, chunk_blocks=48, fused=True)  # interpret on CPU
+    r = Renderer(db, config, chunk_blocks=48)
     out = r.render(castanets, pos, initial_old=(0.0, 0.0))
     assert np.isfinite(out).all()
-    for name in ("_fd_complex", "_fd_dedup", "_fd_fused", "_fd_dedup_fused",
-                 "_fd_onehot", "_fd_onehot_grp"):
+    for name in ("_fd_complex", "_fd_dedup"):
         cache = getattr(r, name)
         assert len(cache) <= 2, (name, list(cache))
-    total = sum(len(getattr(r, n)) for n in
-                ("_fd_complex", "_fd_dedup", "_fd_fused", "_fd_dedup_fused",
-                 "_fd_onehot", "_fd_onehot_grp"))
-    assert 1 <= total <= 4, total  # one path elected, at most 2 xfade variants
+    total = len(r._fd_complex) + len(r._fd_dedup)
+    assert 1 <= total <= 2, total  # one path elected, at most 2 xfade variants

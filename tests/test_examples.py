@@ -28,7 +28,7 @@ def test_example_runs(script, tmp_path):
     # flag the test conftest sets so each subprocess boots the user-default
     # single device (the multi-device examples provision their own via
     # ensure_virtual_devices / run_multiprocess_dryrun)
-    env.pop("JEFFERSON_EXAMPLES_TPU", None)
+    env.pop("JEFFERSON_EXAMPLES_ACCELERATOR", None)
     env["XLA_FLAGS"] = " ".join(
         f for f in env.get("XLA_FLAGS", "").split()
         if "xla_force_host_platform_device_count" not in f

@@ -63,12 +63,12 @@ def test_out_of_range_elevation_is_consistent(db, config, castanets):
 
 
 @pytest.mark.parametrize("seed", [10, 11, 12, 13])
-def test_fuzz_fused_dispatch_boundaries(db, config, castanets, seed):
-    """Randomized geometry x trajectory wideness through the FUSED dispatch
-    ladder (dedup+fused / one-hot / grouped one-hot / gather): fused=True
-    must match fused=False for every random (b_total, chunk_blocks,
-    mover-speed) combination — the planner boundaries (partial chunks,
-    group divisibility, bucket sizing) are where regressions hide."""
+def test_fuzz_dispatch_boundaries(db, config, castanets, seed):
+    """Randomized geometry x trajectory wideness through the dispatch
+    (dedup / direct, crossfade / no-crossfade variants): dedup=True must
+    match dedup=False and the oracle for every random (b_total,
+    chunk_blocks, mover-speed) combination — the planner boundaries
+    (partial chunks, bucket sizing) are where regressions hide."""
     rng = np.random.default_rng(seed)
     b = int(rng.integers(24, 200))
     cb = int(rng.choice([16, 24, 32, 48, 64, 96]))
@@ -80,7 +80,9 @@ def test_fuzz_fused_dispatch_boundaries(db, config, castanets, seed):
         np.full(b, float(rng.uniform(0.2, 2.0))),
     ], axis=-1)
     sig = castanets[: max(b * 128, 4000)]
-    got = Renderer(db, config, chunk_blocks=cb, fused=True).render(sig, pos)
-    want = Renderer(db, config, chunk_blocks=cb, fused=False).render(sig, pos)
-    rep = precision_check(got, want, eps=5e-7)
+    got = Renderer(db, config, chunk_blocks=cb).render(sig, pos)
+    direct = Renderer(db, config, chunk_blocks=cb, dedup=False).render(sig, pos)
+    assert np.array_equal(got, direct), f"b={b} cb={cb} speed={speed}"
+    want = render_oracle(sig, db, [tuple(p) for p in pos], config)
+    rep = precision_check(got, want, eps=2e-7)
     assert rep.ok, f"b={b} cb={cb} speed={speed}: {rep}"

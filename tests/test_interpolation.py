@@ -116,7 +116,7 @@ def test_negative_elevation_truncation():
 
 def test_effective_weights_match_case_chains(db):
     """sum_i w_i * H[idx_i] must equal the oracle's per-case chains up to
-    float32 reassociation (the TPU engine uses the weighted-sum form)."""
+    float32 reassociation (the engine uses the weighted-sum form)."""
     rng = np.random.default_rng(5)
     spec = (rng.standard_normal(513) + 1j * rng.standard_normal(513)).astype(np.complex64)
     spec2 = np.stack([spec, spec])

@@ -1,14 +1,12 @@
-"""No-crossfade fast path (round 5): crossfade-free chunks dispatch to
-kernel/program variants that skip the old-filter side entirely (half the
-tail-IDFT MACs, no old-row blend/gather) and are BIT-IDENTICAL to the
-crossfade programs on such chunks (there out = y_old*0 + y_new*1 = y_new,
-the very planes the fast path computes; the new rows' float values match
-the roll-derived set by the plan invariant old[b+1] == new[b]).
+"""No-crossfade fast path: crossfade-free chunks dispatch to program
+variants that skip the old-filter side entirely (half the tail-IDFT MACs,
+no old-row blend/gather) and are BIT-IDENTICAL to the crossfade programs on
+such chunks (there out = where(False, mixed, y_new) = y_new).
 
 Hold workloads (the reference's benchmark holds each position for 172
 blocks; scene sources usually hold theirs) crossfade only at block 0, so
 every later chunk runs the fast path.  Reference crossfade trigger:
-/root/reference/Jefferson/src/SoundSource.cu:41-54 (old != new position).
+Jefferson/src/SoundSource.cu:41-54 (old != new position).
 """
 
 import numpy as np
@@ -17,155 +15,26 @@ import pytest
 import jax.numpy as jnp
 
 from jefferson_tpu.engine.batch import BatchRenderer
-from jefferson_tpu.engine.plan import fed_stream, make_plan
-from jefferson_tpu.engine.renderer import Renderer, blend_cat, cat_table
 from jefferson_tpu.oracle.reference import render_oracle
-from jefferson_tpu.pallas.fused_apply import fused_apply_xfade, pad_cat_planes
-from jefferson_tpu.pallas.fused_step import (
-    fused_step_stream_xfade,
-    fused_step_xfade,
-    maybe_lane512,
-)
+from jefferson_tpu.engine.renderer import Renderer
 from jefferson_tpu.testing import precision_check
-
-
-def _hold_plans(config, s, nb, initial_old=(0.0, 0.0)):
-    return [
-        make_plan(
-            np.stack([np.full(nb, 30.0 * i + 10.0), np.full(nb, 5.0),
-                      np.full(nb, 1.0)], 1),
-            config, initial_old=initial_old,
-        )
-        for i in range(s)
-    ]
-
-
-@pytest.mark.parametrize("lane512", [False, True])
-def test_fused_step_noxfade_bit_identical(db, config, lane512):
-    """Batched gather-form kernel: no-crossfade variant == crossfade variant
-    on a crossfade-free plan, bitwise (interpret mode)."""
-    s, nb, tb = 4, 16, 32
-    fpb = config.frames_per_buffer
-    rng = np.random.default_rng(0)
-    plans = _hold_plans(config, s, nb, initial_old=None)
-    assert not any(p.xfade.any() for p in plans)
-    sig = (rng.standard_normal((s, nb * fpb)) * 0.2).astype(np.float32)
-    feds = np.stack([fed_stream(sig[i], nb, config) for i in range(s)])
-    hists = np.zeros((s, config.history_len), np.float32)
-    streams = jnp.asarray(np.concatenate([hists, feds], axis=1))
-    spectra = (
-        jnp.asarray(np.real(db.spectra).astype(np.float32)),
-        jnp.asarray(np.imag(db.spectra).astype(np.float32)),
-    )
-    cat = maybe_lane512(cat_table(spectra), lane512, config.num_bins)
-    catr = lambda k, w: blend_cat(
-        cat,
-        jnp.asarray(np.concatenate([getattr(p, k) for p in plans])),
-        jnp.asarray(np.concatenate([getattr(p, w) for p in plans])),
-    )
-    g_old = catr("idx_old", "w_old")
-    g_new = catr("idx_new", "w_new")
-    g_last = blend_cat(
-        cat,
-        jnp.asarray(np.stack([p.idx_new[-1] for p in plans])),
-        jnp.asarray(np.stack([p.w_new[-1] for p in plans])),
-    )
-    col = lambda k: jnp.asarray(np.concatenate([getattr(p, k) for p in plans]))[:, None]
-    uh, ul, df = col("u_hi"), col("u_lo"), col("inv_frac")
-    xf = col("xfade").astype(jnp.float32)
-    kw = dict(nb=nb, pad_len=config.pad_len, bins=config.num_bins, fpb=fpb,
-              tb=tb, interpret=True, lane512=lane512)
-    want = fused_step_xfade(streams, uh, ul, df, g_old, g_last, xf, **kw)
-    got = fused_step_xfade(streams, uh, ul, df, g_new, None, None,
-                           with_xfade=False, **kw)
-    assert np.array_equal(np.asarray(want), np.asarray(got))
-
-
-def test_fused_step_stream_noxfade_bit_identical(db, config):
-    """Single-stream gather-form kernel, same bitwise contract."""
-    nb, tb = 32, 8
-    fpb = config.frames_per_buffer
-    rng = np.random.default_rng(1)
-    (plan,) = _hold_plans(config, 1, nb, initial_old=None)
-    sig = (rng.standard_normal(nb * fpb) * 0.2).astype(np.float32)
-    stream = jnp.asarray(
-        np.concatenate([np.zeros(config.history_len, np.float32),
-                        fed_stream(sig, nb, config)])
-    )
-    spectra = (
-        jnp.asarray(np.real(db.spectra).astype(np.float32)),
-        jnp.asarray(np.imag(db.spectra).astype(np.float32)),
-    )
-    cat = cat_table(spectra)
-    g_old = blend_cat(cat, jnp.asarray(plan.idx_old), jnp.asarray(plan.w_old))
-    g_new = blend_cat(cat, jnp.asarray(plan.idx_new), jnp.asarray(plan.w_new))
-    g_last = blend_cat(cat, jnp.asarray(plan.idx_new[-1:]), jnp.asarray(plan.w_new[-1:]))
-    col = lambda k: jnp.asarray(getattr(plan, k))[:, None]
-    uh, ul, df = col("u_hi"), col("u_lo"), col("inv_frac")
-    xf = col("xfade").astype(jnp.float32)
-    kw = dict(pad_len=config.pad_len, bins=config.num_bins, fpb=fpb, tb=tb,
-              interpret=True)
-    want = fused_step_stream_xfade(stream, uh, ul, df, g_old, g_last, xf, **kw)
-    got = fused_step_stream_xfade(stream, uh, ul, df, g_new, None, None,
-                                  with_xfade=False, **kw)
-    assert np.array_equal(np.asarray(want), np.asarray(got))
-
-
-def test_fused_apply_noxfade_bit_identical(db, config):
-    """fused_apply (the non-aligned-geometry fallback), same contract."""
-    s, nb, tb = 4, 8, 16
-    bins, fpb = config.num_bins, config.frames_per_buffer
-    b = s * nb
-    rng = np.random.default_rng(2)
-    xdr = jnp.asarray(rng.standard_normal((b, bins)).astype(np.float32))
-    xdi = jnp.asarray(rng.standard_normal((b, bins)).astype(np.float32))
-    plans = _hold_plans(config, s, nb, initial_old=None)
-    hr = np.real(db.spectra).astype(np.float32)
-    hi = np.imag(db.spectra).astype(np.float32)
-    cat = np.concatenate([hr[:, 0], hi[:, 0], hr[:, 1], hi[:, 1]], axis=1)
-    catp = jnp.asarray(pad_cat_planes(cat, bins))
-    catr = lambda k, w: blend_cat(
-        catp,
-        jnp.asarray(np.concatenate([getattr(p, k) for p in plans])),
-        jnp.asarray(np.concatenate([getattr(p, w) for p in plans])),
-    )
-    g_old = catr("idx_old", "w_old")
-    g_new = catr("idx_new", "w_new")
-    g_last = blend_cat(
-        catp,
-        jnp.asarray(np.stack([p.idx_new[-1] for p in plans])),
-        jnp.asarray(np.stack([p.w_new[-1] for p in plans])),
-    )
-    xf = jnp.asarray(
-        np.concatenate([p.xfade for p in plans]).astype(np.float32)
-    )[:, None]
-    icr, ici = (jnp.asarray(a) for a in
-                __import__("jefferson_tpu.ops.fft", fromlist=["_idft_tail_matrices"])
-                ._idft_tail_matrices(config.pad_len, fpb))
-    kw = dict(seg=nb, bins=bins, fpb=fpb, tb=tb, interpret=True)
-    want = fused_apply_xfade(xdr, xdi, g_old, g_last, xf, icr, ici, **kw)
-    got = fused_apply_xfade(xdr, xdi, g_new, None, None, icr, ici,
-                            with_xfade=False, **kw)
-    assert np.array_equal(np.asarray(want), np.asarray(got))
 
 
 def test_renderer_hold_uses_noxfade_programs(db, config):
     """A hold render (crossfade at block 0 only) splits into one crossfade +
-    one no-crossfade dedup+fused program and stays on the oracle."""
+    one no-crossfade dedup program and stays on the oracle."""
     rng = np.random.default_rng(3)
     B = 96
     sig = (rng.standard_normal(B * config.frames_per_buffer) * 0.2).astype(np.float32)
     pos = np.stack([np.full(B, 40.0), np.full(B, 10.0), np.full(B, 1.0)], 1)
-    r = Renderer(db, config, chunk_blocks=32, fused=True)
+    r = Renderer(db, config, chunk_blocks=32)
     got = r.render(sig, pos)
     want = render_oracle(sig, db, [tuple(p) for p in pos], config)
     rep = precision_check(got, want, eps=2e-7)
     assert rep.ok, str(rep)
-    # chunk_blocks=32 is below the sparse-bucket threshold (bucket 8 >
-    # 32//8), so the render splits into crossfade + no-crossfade programs
-    xfs = {k[3] for k in r._fd_dedup_fused}
+    xfs = {k[1] for k in r._fd_dedup}
     assert xfs == {True, False}, (
-        f"hold render must compile both variants, got keys {list(r._fd_dedup_fused)}"
+        f"hold render must compile both variants, got keys {list(r._fd_dedup)}"
     )
 
 
@@ -175,26 +44,26 @@ def test_renderer_noxfade_only_render(db, config):
     B = 64
     sig = (rng.standard_normal(B * config.frames_per_buffer) * 0.2).astype(np.float32)
     pos = np.stack([np.full(B, 70.0), np.full(B, -20.0), np.full(B, 0.8)], 1)
-    r = Renderer(db, config, chunk_blocks=32, fused=True)
+    r = Renderer(db, config, chunk_blocks=32)
     got = r.render(sig, pos, initial_old=None)
     want = render_oracle(sig, db, [tuple(p) for p in pos], config, initial_old=None)
     rep = precision_check(got, want, eps=2e-7)
     assert rep.ok, str(rep)
-    assert {(k[3], k[4]) for k in r._fd_dedup_fused} == {(False, None)}
+    assert {k[1] for k in r._fd_dedup} == {False}
 
 
 def test_renderer_gather_noxfade(db, config):
-    """dedup=False hold render takes the gather-form no-crossfade program."""
+    """dedup=False hold render takes the direct no-crossfade program."""
     rng = np.random.default_rng(5)
     B = 64
     sig = (rng.standard_normal(B * config.frames_per_buffer) * 0.2).astype(np.float32)
     pos = np.stack([np.full(B, 40.0), np.full(B, 10.0), np.full(B, 1.0)], 1)
-    r = Renderer(db, config, chunk_blocks=32, fused=True, dedup=False)
+    r = Renderer(db, config, chunk_blocks=32, dedup=False)
     got = r.render(sig, pos, initial_old=None)
     want = render_oracle(sig, db, [tuple(p) for p in pos], config, initial_old=None)
     rep = precision_check(got, want, eps=2e-7)
     assert rep.ok, str(rep)
-    assert any(k[-1] is False for k in r._fd_fused), list(r._fd_fused)
+    assert set(r._fd_complex) == {(32, False)}, list(r._fd_complex)
 
 
 def test_batch_hold_scene_noxfade(db, config):
@@ -208,11 +77,11 @@ def test_batch_hold_scene_noxfade(db, config):
         for i in range(s)
     ])
     signals = (rng.standard_normal((s, b_total * fpb)) * 0.2).astype(np.float32)
-    br = BatchRenderer(db, config, chunk_blocks=32, fused=True, dedup=True)
+    br = BatchRenderer(db, config, chunk_blocks=32, dedup=True)
     out = br.render(signals, positions)
-    # 4 sources x 32-block chunks: 4 block-0 crossfades fit the sparse
-    # bucket (8 <= 128//8), so ONE sparse program covers every chunk
-    assert {(k[6], k[7]) for k in br._jitted} == {(False, 8)}, list(br._jitted)
+    # block-0 crossfades only: chunk 0 takes the crossfade program, the
+    # other two the no-crossfade one, both on the dedup path
+    assert set(br._jitted) == {(32, 8, True), (32, 8, False)}, list(br._jitted)
     for i in range(s):
         want = render_oracle(
             signals[i], db, [tuple(p) for p in positions[i]], config
@@ -222,9 +91,8 @@ def test_batch_hold_scene_noxfade(db, config):
 
 
 def test_batch_hold_scene_noxfade_sharded(db, config):
-    """Same over a 4-device source mesh: the SPARSE program runs under
-    shard_map (per-shard cf buckets) and matches the unsharded sparse
-    render."""
+    """Same over a 4-device source mesh: both variants run sharded and
+    match the unsharded render."""
     import jax
     from jefferson_tpu.parallel.mesh import make_mesh
 
@@ -240,65 +108,36 @@ def test_batch_hold_scene_noxfade_sharded(db, config):
     ])
     signals = (rng.standard_normal((s, b_total * fpb)) * 0.2).astype(np.float32)
     mesh = make_mesh(4, ("src",))
-    br_m = BatchRenderer(db, config, chunk_blocks=32, fused=True, mesh=mesh)
-    br_1 = BatchRenderer(db, config, chunk_blocks=32, fused=True)
+    br_m = BatchRenderer(db, config, chunk_blocks=32, mesh=mesh)
+    br_1 = BatchRenderer(db, config, chunk_blocks=32)
     out_m = br_m.render(signals, positions)
     out_1 = br_1.render(signals, positions)
-    assert {(k[6], k[7]) for k in br_m._jitted} == {(False, 8)}, list(br_m._jitted)
-    d = np.abs(out_m - out_1)
-    # both arms run sparse; the crossfading block-0 samples may differ by
-    # shard-local vs global XLA scheduling ulps at most
-    assert d.max() < 5e-7, d.max()
-    assert np.array_equal(out_m[:, fpb:], out_1[:, fpb:])
+    assert {k[2] for k in br_m._jitted} == {True, False}, list(br_m._jitted)
+    # shard-local vs global XLA scheduling may move ulps at most
+    assert np.abs(out_m - out_1).max() < 5e-7
 
 
-def test_batch_sharded_2variant_when_sparse_off(db, config):
-    """sparse_xfade=False under a mesh falls back to the two chunk-level
-    variants (regression for the pre-sparse dispatch)."""
-    import jax
-    from jefferson_tpu.parallel.mesh import make_mesh
-
-    if len(jax.devices()) < 4:
-        pytest.skip("needs >= 4 virtual devices")
-    s, b_total = 8, 96
-    fpb = config.frames_per_buffer
-    rng = np.random.default_rng(13)
-    positions = np.stack([
-        np.stack([np.full(b_total, 20.0 * i), np.full(b_total, 5.0),
-                  np.full(b_total, 0.9)], 1)
-        for i in range(s)
-    ])
-    signals = (rng.standard_normal((s, b_total * fpb)) * 0.2).astype(np.float32)
-    mesh = make_mesh(4, ("src",))
-    br = BatchRenderer(db, config, chunk_blocks=32, fused=True, mesh=mesh,
-                       sparse_xfade=False)
-    br.render(signals, positions)
-    assert {k[6] for k in br._jitted} == {True, False}, list(br._jitted)
-
-
-def test_sparse_xfade_reference_cadence(db, config):
+def test_reference_cadence_render(db, config):
     """Reference-cadence render (position steps every hold blocks, so EVERY
-    chunk crossfades on 1-2 rows): the sparse program — no-crossfade kernel
-    + XLA side-pass — covers all chunks and stays on the oracle."""
+    chunk crossfades on 1-2 rows): every chunk runs the crossfade dedup
+    program and stays on the oracle."""
     rng = np.random.default_rng(9)
     B, hold, cb = 512, 86, 256
     step = np.arange(B) // hold
     pos = np.stack([(5.0 * step) % 360.0, np.full(B, 0.0), np.full(B, 1.0)], 1)
     sig = (rng.standard_normal(B * config.frames_per_buffer) * 0.2).astype(np.float32)
-    r = Renderer(db, config, chunk_blocks=cb, fused=True)
+    r = Renderer(db, config, chunk_blocks=cb)
     got = r.render(sig, pos)
     want = render_oracle(sig, db, [tuple(p) for p in pos], config)
     rep = precision_check(got, want, eps=2e-7)
     assert rep.ok, str(rep)
-    keys = list(r._fd_dedup_fused)
-    assert keys and all(k[3] is False and k[4] == 8 for k in keys), keys
-    # and vs the forced crossfade-program render: identical off-crossfade
-    r2 = Renderer(db, config, chunk_blocks=cb, fused=False)
-    want2 = r2.render(sig, pos)
-    assert np.abs(got - want2).max() < 5e-7
+    assert {k[1] for k in r._fd_dedup} == {True}, list(r._fd_dedup)
+    # and the direct program gives the same samples
+    direct = Renderer(db, config, chunk_blocks=cb, dedup=False).render(sig, pos)
+    assert np.array_equal(got, direct)
 
 
-def test_sparse_xfade_batched_cadence(db, config):
+def test_reference_cadence_batched(db, config):
     """Batched form of the same cadence: per-source 86-block holds."""
     s, B, cb = 4, 256, 128
     fpb = config.frames_per_buffer
@@ -310,10 +149,9 @@ def test_sparse_xfade_batched_cadence(db, config):
         for i in range(s)
     ])
     signals = (rng.standard_normal((s, B * fpb)) * 0.2).astype(np.float32)
-    br = BatchRenderer(db, config, chunk_blocks=cb, fused=True)
+    br = BatchRenderer(db, config, chunk_blocks=cb)
     out = br.render(signals, positions)
-    ks = [k for k in br._jitted if k[1] is not None and k[2] is not None]
-    assert ks and all(k[6] is False and k[7] == 8 for k in ks), list(br._jitted)
+    assert all(k[1] is not None and k[2] for k in br._jitted), list(br._jitted)
     for i in range(s):
         want = render_oracle(
             signals[i], db, [tuple(p) for p in positions[i]], config
@@ -352,19 +190,19 @@ def test_live_block_step_noxfade_bit_identical(db, config):
 
 
 def test_amortization_guard_single_noxf_chunk(db, config):
-    """A lone crossfade-free chunk is NOT worth a second remote compile:
-    a 2-chunk hold render (one crossfading, one not) with sparse disabled
-    rides the crossfade program alone."""
+    """A lone crossfade-free chunk is NOT worth a second compile: a
+    2-chunk hold render (one crossfading, one not) rides the crossfade
+    program alone."""
     rng = np.random.default_rng(12)
     B = 64
     sig = (rng.standard_normal(B * config.frames_per_buffer) * 0.2).astype(np.float32)
     pos = np.stack([np.full(B, 40.0), np.full(B, 10.0), np.full(B, 1.0)], 1)
-    r = Renderer(db, config, chunk_blocks=32, fused=True, sparse_xfade=False)
+    r = Renderer(db, config, chunk_blocks=32)
     got = r.render(sig, pos)
     want = render_oracle(sig, db, [tuple(p) for p in pos], config)
     rep = precision_check(got, want, eps=2e-7)
     assert rep.ok, str(rep)
-    assert {k[3] for k in r._fd_dedup_fused} == {True}, list(r._fd_dedup_fused)
+    assert {k[1] for k in r._fd_dedup} == {True}, list(r._fd_dedup)
 
 
 def test_mixed_mover_keeps_crossfade_program(db, config):
@@ -380,6 +218,20 @@ def test_mixed_mover_keeps_crossfade_program(db, config):
         for i in range(s)
     ])
     signals = (rng.standard_normal((s, b_total * fpb)) * 0.2).astype(np.float32)
-    br = BatchRenderer(db, config, chunk_blocks=32, fused=True)
+    br = BatchRenderer(db, config, chunk_blocks=32)
     br.render(signals, positions)
-    assert {(k[6], k[7]) for k in br._jitted} == {(True, None)}, list(br._jitted)
+    assert {k[2] for k in br._jitted} == {True}, list(br._jitted)
+
+
+@pytest.mark.parametrize("flags,want", [
+    ([True, True, True], [True, True, True]),          # movers: one program
+    ([True, False], [True, True]),                     # a lone hold chunk rides along
+    ([True, False, False], [True, False, False]),      # two hold chunks earn a variant
+    ([False, False], [False, False]),                  # all-hold render
+])
+def test_xfade_amortization_policy(flags, want):
+    """The no-crossfade variant is elected only when at least two chunks
+    use it (or the whole render is crossfade-free)."""
+    from jefferson_tpu.engine.renderer import _apply_xfade_amortization
+
+    assert _apply_xfade_amortization(flags) == want

@@ -1,4 +1,4 @@
-"""Reverb tests: partitioned TPU convolution vs whole-signal oracle,
+"""Reverb tests: partitioned accelerator convolution vs whole-signal oracle,
 reference circular-wrap semantics, RMS normalization, streaming convolver."""
 
 import numpy as np

@@ -755,7 +755,7 @@ def test_serve_cli_daemon_mode_boots_service(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(
         serve_mod, "serve", lambda sock, svc: seen.update(sock=sock, svc=svc)
     )
-    monkeypatch.setenv("JEFFERSON_COMPILE_CACHE", str(tmp_path / "cache"))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cache"))
     sock = tmp_path / "d.sock"
     rc = serve_mod.main(["--socket", str(sock), "--chunk-blocks", "64"])
     assert rc == 0

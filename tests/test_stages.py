@@ -141,16 +141,11 @@ def test_plan_crossfade_flags(config):
 
 def test_plan_layer_validation_and_edges():
     """The plan layer's defensive edges: malformed positions, zero-block
-    plans, no-op padding, compact-bucket overflow, non-mono feeds."""
+    plans, no-op padding, non-mono feeds."""
     import pytest
 
     from jefferson_tpu import DEFAULT_CONFIG
-    from jefferson_tpu.engine.plan import (
-        _compact_table,
-        fed_stream,
-        make_plan,
-        pad_plan,
-    )
+    from jefferson_tpu.engine.plan import fed_stream, make_plan, pad_plan
 
     with pytest.raises(ValueError, match=r"positions must be \(B, 3\)"):
         make_plan(np.zeros((4, 2)), DEFAULT_CONFIG)
@@ -159,9 +154,6 @@ def test_plan_layer_validation_and_edges():
 
     p = make_plan([(30.0, 0.0, 1.0)] * 4, DEFAULT_CONFIG)
     assert pad_plan(p, 0) is p  # no-op padding returns the plan unchanged
-
-    with pytest.raises(ValueError, match="unique filters exceed the bucket"):
-        _compact_table(np.arange(16, dtype=np.int32), 8, "test")
 
     with pytest.raises(ValueError, match="mono"):
         fed_stream(np.zeros((64, 2), np.float32), 1, DEFAULT_CONFIG)

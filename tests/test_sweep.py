@@ -24,9 +24,8 @@ def test_four_scenario_sweep_fft_backend(db, config, castanets):
 
 
 def test_four_scenario_sweep_matmul_backend(db, config, castanets):
-    """The MXU DFT-matmul backend holds the reference's own 2e-7 gate even
-    across transform algorithms (measured worst 8.2e-8 here, 1.19e-7 on the
-    real chip's full-scale sweep — PERF.md)."""
+    """The DFT-matmul backend holds the reference's own 2e-7 gate even
+    across transform algorithms."""
     reports = run_benchmark_sweep(
         castanets,
         db,
@@ -50,9 +49,9 @@ def test_sweep_wraps_azimuth(config):
 
 
 def test_mover_gate_scaled(db, config, castanets):
-    """The per-block mover scenario (round-3 gate addition: exercises the
-    one-hot/gather mover kernels, which the 4 hold-position scenarios never
-    reach) holds the 2e-7 gate at CI scale."""
+    """The per-block mover scenario (exercises the direct every-block
+    crossfade program, which the 4 hold-position scenarios never reach)
+    holds the 2e-7 gate at CI scale."""
     from jefferson_tpu.bench.sweep import mover_positions, run_mover_gate
 
     pos = mover_positions(997)
@@ -69,7 +68,7 @@ def test_mover_gate_scaled(db, config, castanets):
 
 def test_sweep_cli_emits_margin_json(db, config, castanets, tmp_path, capsys, monkeypatch):
     """The sweep CLI emits the per-scenario margin JSON line (gate-headroom
-    telemetry, VERDICT r2 item 5)."""
+    telemetry)."""
     import json
 
     from jefferson_tpu.bench import sweep as sweep_mod
@@ -95,37 +94,53 @@ def test_sweep_cli_emits_margin_json(db, config, castanets, tmp_path, capsys, mo
 
 
 def test_scene_gate_scaled(db, config, castanets):
-    """Round-4 gate addition: the BATCHED/scene kernels (batch dedup+fused
-    and batched grouped one-hot — the daemon/--scene production paths) are
-    oracle-gated per source at the reference's 2e-7 eps; the full-scale
-    on-chip run is `python -m jefferson_tpu.bench.sweep` (PERF.md ladder).
-    fused=True forces the kernels (interpret mode on CPU) so the dispatch
+    """The BATCHED/scene programs (batch dedup for holding sources, the
+    direct program for wide movers — the daemon/--scene production paths)
+    are oracle-gated per source at the reference's 2e-7 eps; the dispatch
     pin verifies the gate exercises what it claims to."""
     from jefferson_tpu.bench.sweep import run_scene_gate
 
     rep = run_scene_gate(
         castanets, db, config, scenario="hold", num_sources=8, num_blocks=128,
-        chunk_blocks=64, fused=True, require_dispatch=True,
+        chunk_blocks=64,
     )
     assert rep.ok, f"scene hold: {rep}"
     rep = run_scene_gate(
         castanets, db, config, scenario="movers", num_sources=16, num_blocks=128,
-        chunk_blocks=64, fused=True, require_dispatch=True,
+        chunk_blocks=64,
     )
     assert rep.ok, f"scene movers: {rep}"
 
 
+def test_oracle_workers_match_the_serial_oracle(db, config, castanets):
+    """Oracle renders in spawned CPU worker processes equal the in-process
+    ones bit for bit, in job order, and the sweep's reports do not change."""
+    from jefferson_tpu.bench.sweep import run_benchmark_sweep
+    from jefferson_tpu.oracle.reference import render_oracle, render_oracle_many
+
+    pos = [np.tile([azi, 10.0, 0.8], (12, 1)) for azi in (0.0, 40.0, 300.0)]
+    sigs = [np.roll(castanets, 997 * k)[: 12 * config.frames_per_buffer] for k in range(3)]
+    many = render_oracle_many(zip(sigs, pos), db, config, workers=2)
+    for s, p, got in zip(sigs, pos, many):
+        np.testing.assert_array_equal(got, render_oracle(s, db, [tuple(x) for x in p], config))
+    kw = dict(blocks_per_step=4, num_steps=2, scenarios=SCENARIOS[:2])
+    serial = run_benchmark_sweep(castanets, db, config, **kw)
+    pooled = run_benchmark_sweep(castanets, db, config, oracle_workers=2, **kw)
+    assert [r.max_abs_diff for r in serial] == [r.max_abs_diff for r in pooled]
+
+
 def test_scene_gate_dispatch_pin_detects_wrong_path(db, config, castanets):
-    """The gate must refuse to pass when the intended kernel never ran
-    (fused disabled -> XLA batch path -> AssertionError, not a green gate)."""
+    """The gate must refuse to pass when the intended program never ran
+    (dedup disabled -> direct batch path -> AssertionError, not a green
+    gate)."""
     import pytest
 
     from jefferson_tpu.bench.sweep import run_scene_gate
 
-    with pytest.raises(AssertionError, match="dedup_fused"):
+    with pytest.raises(AssertionError, match="dedup dispatch"):
         run_scene_gate(
             castanets, db, config, scenario="hold", num_sources=8,
-            num_blocks=128, chunk_blocks=64, fused=False, require_dispatch=True,
+            num_blocks=128, chunk_blocks=64, dedup=False,
         )
 
 
